@@ -25,14 +25,14 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from alignnet3d_tpu_torch.data.denoise import component_filter_indices
+from alignnet3d_tpu_torch.data.provider import voxel_dedup_indices
 from alignnet3d_tpu_torch.evaluation.decode import decode_pair_outputs
-from alignnet3d_tpu_torch.host import (
-    component_filter_indices,
+from alignnet3d_tpu_torch.geometry import (
     compose_gated_refinement,
     get_mat_angle,
     get_mat_angle_batch,
     transform_points,
-    voxel_dedup_indices,
 )
 from alignnet3d_tpu_torch.icp.p2point import icp_p2point_batch
 from alignnet3d_tpu_torch.models.alignnet import ModelSpec

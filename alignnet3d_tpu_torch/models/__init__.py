@@ -1,1 +1,1 @@
-"""The unfolded AlignNet model in PyTorch (PointNet branch)."""
+"""The unfolded AlignNet model in PyTorch (PointNet and DGCNN backbones)."""

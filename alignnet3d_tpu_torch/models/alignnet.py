@@ -1,12 +1,12 @@
 """The AlignNet model: Siamese 3-stage canonicalising encoder +
 relative-pose head (reference models/tp8.py:101-158).
 
-Counterpart of ``alignnet3d_tpu/models/alignnet.py``, PointNet branch with
-``stack_siamese=True``: both clouds run through the shared encoder as one
-stacked 2B batch, so train-mode BN statistics are shared. The module tree
-carries the flax names (``siamese.transformer1.PointNetBackbone_0``,
-``siamese.PointNetBackbone_0``, ``remaining`` ...), and ``forward`` returns
-the same ``end_points`` keys.
+Counterpart of ``alignnet3d_tpu/models/alignnet.py``, PointNet and DGCNN
+backbones, with ``stack_siamese=True``: both clouds run through the shared
+encoder as one stacked 2B batch, so train-mode BN statistics are shared.
+The module tree carries the flax names (``siamese.transformer1``, its
+backbone ``PointNetBackbone_0`` or ``DGCNNBackbone_0``, ``remaining`` ...),
+and ``forward`` returns the same ``end_points`` keys.
 
 This is the unfolded model, in float32: the serving path folds its BNs
 (``alignnet3d_tpu_torch.serving``) and is where bf16 is offered.
@@ -93,6 +93,21 @@ class ModelSpec:
                 "bfloat16": torch.bfloat16}[self.compute_dtype]
 
 
+def backbone_name(spec: ModelSpec) -> str:
+    """The flax name of the spec's backbone module: its class name + _0."""
+    names = {"pointnet": "PointNetBackbone_0", "dgcnn": "DGCNNBackbone_0"}
+    if spec.backbone not in names:
+        raise ValueError(f"unknown backbone {spec.backbone!r}")
+    return names[spec.backbone]
+
+
+def _backbone(spec: ModelSpec, sizes: Sequence[int]) -> nn.Module:
+    return make_backbone(spec.backbone, 3, sizes,
+                         approx_knn=spec.dgcnn_approx_knn,
+                         knn_impl=spec.dgcnn_knn_impl,
+                         fused_train=spec.dgcnn_fused_train)
+
+
 class TransformerNet(nn.Module):
     """Backbone -> MLP head (reference get_transformer_net, tp8.py:89-98).
     The head is 3 wide, plus 2*num_bins when it predicts angles."""
@@ -102,12 +117,14 @@ class TransformerNet(nn.Module):
                  with_angles: bool):
         super().__init__()
         head_width = 3 + (2 * spec.num_bins if with_angles else 0)
-        self.PointNetBackbone_0 = make_backbone(spec.backbone, 3, backbone_sizes)
+        self.backbone_name = backbone_name(spec)
+        self.add_module(self.backbone_name, _backbone(spec, backbone_sizes))
         self.MLPHead_0 = MLPHead(backbone_sizes[-1],
                                  (*mlp_sizes, head_width), dropout_keep)
 
     def forward(self, points: torch.Tensor, momentum: float) -> torch.Tensor:
-        return self.MLPHead_0(self.PointNetBackbone_0(points, momentum), momentum)
+        feat = getattr(self, self.backbone_name)(points, momentum)
+        return self.MLPHead_0(feat, momentum)
 
 
 class EmbeddingNet(nn.Module):
@@ -125,7 +142,8 @@ class EmbeddingNet(nn.Module):
         self.transformer2 = TransformerNet(
             spec, spec.s2_backbone, spec.s2_mlp, spec.s2_dropout_keep,
             with_angles=True)
-        self.PointNetBackbone_0 = make_backbone(spec.backbone, 3, spec.embedding)
+        self.backbone_name = backbone_name(spec)
+        self.add_module(self.backbone_name, _backbone(spec, spec.embedding))
 
     def forward(self, points: torch.Tensor, momentum: float):
         spec = self.spec
@@ -138,7 +156,7 @@ class EmbeddingNet(nn.Module):
         s2_angles = logits_to_angle(s2_angle_logits, spec.num_bins,
                                     residual_scale=np.pi / spec.num_bins)
         normalized = rotate_points_z(points - s2_center[:, None, :], -s2_angles)
-        embedding = self.PointNetBackbone_0(normalized, momentum)
+        embedding = getattr(self, self.backbone_name)(normalized, momentum)
         return embedding, s1_center, s2_center, s2_angle_logits
 
 

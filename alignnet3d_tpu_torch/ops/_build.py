@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into ONE shared library
-with a plain C interface, loaded with ``ctypes``:
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc``, all started
+together, and the objects are linked into ONE shared library with a plain
+C interface, loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared \
-         -Xcompiler -fPIC -o build/kernels/libalignnet3d_kernels_<hash>.so \
-         alignnet3d_tpu_torch/csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 \
+         -Xcompiler -fPIC -c alignnet3d_tpu_torch/csrc/<name>.cu   # each
+    nvcc -shared -o build/kernels/libalignnet3d_kernels_<hash>.so *.o
 
 The build runs at first use, inside the checkout (``build/kernels/``,
 listed in ``.gitignore``). The library's name carries a hash of the
@@ -27,9 +28,9 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = (
+NVCC_FLAGS = (  # compile flags of every source; the link adds -shared
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -42,6 +43,8 @@ _SIGNATURES = {
         ctypes.POINTER(_P), _I, _P, _P,
     ),
     "nn_argmin_launch": (_P, _P, _P, _I, _I, _I, _P, _P, _P),
+    "knn_points_launch": (_P, _I, _I, _I, _P, _P),
+    "edge_stage_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
 }
 
 
@@ -68,24 +71,37 @@ def library_path() -> Path:
     return BUILD_DIR / f"libalignnet3d_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with the output of the first
+    that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outputs = [p.communicate()[0] for p in procs]
+    for cmd, proc, output in zip(cmds, procs, outputs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{output}")
+
+
 def build() -> Path:
     """Compile the kernels if their library is missing; return its path."""
     lib = library_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs, compiles = [], []
+        for src in _sources():
+            if src.suffix == ".cu":
+                objs.append(os.path.join(work, src.stem + ".o"))
+                compiles.append([nvcc, *NVCC_FLAGS, "-c", str(src),
+                                 "-o", objs[-1]])
+        _run(compiles)
+        tmp = os.path.join(work, lib.name)
+        _run([[nvcc, "-shared", *NVCC_FLAGS[:2], "-o", tmp, *objs]])
+        os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
     return lib
 
 

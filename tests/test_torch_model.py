@@ -91,9 +91,18 @@ def test_batchnorm_train_and_eval():
 
 
 def test_dgcnn_backbone_not_ported():
-    spec = dataclasses.replace(torch_spec(SPEC), backbone="dgcnn")
+    """The DGCNN backbone is ported; its fused training stage
+    (``dgcnn_fused_train``) is not, and a train-mode forward that would
+    take it raises."""
+    spec = dataclasses.replace(torch_spec(SPEC), backbone="dgcnn",
+                               s1_backbone=(16, 32, 32),
+                               s2_backbone=(16, 32, 32),
+                               embedding=(16, 32, 64),
+                               dgcnn_fused_train=True)
+    model = TorchAlignNet(spec).train()
+    x = torch.zeros((2, spec.num_points, 3))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchAlignNet(spec)
+        model(x, x)
 
 
 def test_model_spec_from_config_reads_the_jax_keys():
