@@ -68,6 +68,17 @@ def dump_to_namespace(ns: NameSpace, d: dict) -> None:
             ns.__dict__[k] = copy.deepcopy(v)
 
 
+def namespace_to_dict(ns: NameSpace, d: dict) -> dict:
+    """The attribute tree back to nested dicts, merged into ``d``."""
+    for k, v in ns.__dict__.items():
+        if isinstance(v, NameSpace):
+            d[k] = dict()
+            namespace_to_dict(v, d[k])
+        else:
+            d[k] = v
+    return d
+
+
 # filled by load_config, which the reference's callers read afterwards
 configGlobal = NameSpace()
 
@@ -115,6 +126,16 @@ def load_config(filename: str) -> NameSpace:
             len(_read_split(split_file)) if os.path.isfile(split_file) else 0
         )
     return configGlobal
+
+
+def save_config(filename: str, cfg: NameSpace | None = None) -> None:
+    """Write a config tree (by default the one ``load_config`` filled) as
+    JSON (reference config.py:85-88)."""
+    if not filename.endswith(".json"):
+        raise ValueError(f"config must be a .json file: {filename}")
+    with open(filename, "w") as handle:
+        json.dump(namespace_to_dict(configGlobal if cfg is None else cfg,
+                                    dict()), handle)
 
 
 def config_from_dict(d: dict) -> NameSpace:

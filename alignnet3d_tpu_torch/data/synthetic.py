@@ -14,9 +14,12 @@ gaussian noise (pointcloud.py:1133-1136).
 
 from __future__ import annotations
 
+import json
+import os
+
 import numpy as np
 
-from alignnet3d_tpu_torch.geometry import get_mat_angle
+from alignnet3d_tpu_torch.geometry import get_mat_angle, np_to_str
 
 VRES = 64
 VFOV_DEG = 26.9
@@ -263,3 +266,58 @@ class SyntheticBoxScene:
                 pts = distance_noise(pts, pose[:3, 3], self.rng, sigma, clip)
             clouds.append(np.asarray(pts, dtype=np.float32))
         self.pointclouds = clouds
+
+    def save(self, basepath: str, scene_idx: int):
+        """Write the two clouds and the meta JSON in the dataset layout
+        (meta/, pointcloud1/, pointcloud2/; reference README.md:50-69)."""
+        if self.pointclouds is None:
+            raise ValueError("call generate_pointcloud first")
+        for sub in ("meta", "pointcloud1", "pointcloud2"):
+            os.makedirs(os.path.join(basepath, sub), exist_ok=True)
+        for k, pc in enumerate(self.pointclouds):
+            np.save(
+                f"{basepath}/pointcloud{k + 1}/{str(scene_idx).zfill(8)}", pc
+            )
+        t = self.transform
+        data = {
+            "start_position": np_to_str(t.start_position),
+            "start_angle": float(t.start_angle),
+            "end_position": np_to_str(t.end_position),
+            "end_angle": float(t.end_angle),
+            "translation": np_to_str(t.translation),
+            "rel_angle": float(t.rel_angle),
+            **self.additional_meta,
+        }
+        with open(f"{basepath}/meta/{str(scene_idx).zfill(8)}.json", "w") as f:
+            json.dump(data, f)
+
+
+def generate_dataset(basepath: str, num_train: int, num_val: int,
+                     seed: int = 0, vres: int = 32, hres: int = 720,
+                     polar_dist_range=(4, 20), allow_persons: bool = False,
+                     second_object_set: bool = False, min_points: int = 5,
+                     hard: bool = False):
+    """A complete dataset directory (meta, clouds, split/train.txt and
+    split/val.txt). A scene whose views have fewer than ``min_points``
+    hits is drawn again with the next seed. Returns (train_indices,
+    val_indices)."""
+    os.makedirs(os.path.join(basepath, "split"), exist_ok=True)
+    written, attempt, indices = 0, 0, []
+    while written < num_train + num_val:
+        scene = SyntheticBoxScene(
+            seed=seed * 1_000_003 + attempt, vres=vres, hres=hres,
+            polar_dist_range=polar_dist_range, allow_persons=allow_persons,
+            second_object_set=second_object_set, hard=hard,
+        )
+        attempt += 1
+        scene.generate_pointcloud()
+        if min(len(pc) for pc in scene.pointclouds) < min_points:
+            continue
+        scene.save(basepath, written)
+        indices.append(written)
+        written += 1
+    train_idx, val_idx = indices[:num_train], indices[num_train:]
+    for name, idxs in (("train", train_idx), ("val", val_idx)):
+        with open(f"{basepath}/split/{name}.txt", "w") as f:
+            f.write("\n".join(str(i) for i in idxs) + "\n")
+    return train_idx, val_idx

@@ -9,7 +9,29 @@ geometry toolbox (reference tp_utils/pointcloud.py:279-289).
 
 from __future__ import annotations
 
+import base64
+import io
+
 import numpy as np
+
+
+def np_to_str(arr: np.ndarray, plaintext: bool = True) -> str:
+    """An array in the ASCII codec of the dataset meta JSON files
+    (reference pointcloud.py:247-257)."""
+    output = io.BytesIO()
+    if plaintext:
+        np.savetxt(output, np.asarray(arr))
+        return output.getvalue().decode("ascii")
+    np.savez_compressed(output, arr=np.asarray(arr))
+    return base64.b64encode(output.getvalue()).decode("ascii")
+
+
+def str_to_np(s: str, plaintext: bool = True) -> np.ndarray:
+    """Inverse of :func:`np_to_str` (reference pointcloud.py:260-265)."""
+    if plaintext:
+        return np.loadtxt(io.BytesIO(s.encode("ascii")))
+    raw = base64.b64decode(s)
+    return np.load(io.BytesIO(raw))["arr"]
 
 
 def rotation_matrix_z(angle) -> np.ndarray:
@@ -81,3 +103,26 @@ def compose_gated_refinement(M1, t2, a2, c2, gate_deg: float,
         np.linalg.norm(t2[:, :2], axis=1) <= gate_xy
     )
     return np.where(ok[:, None, None], M, M1), ok
+
+
+def wrap_angle(a):
+    """Wrap angle(s) to (-pi, pi]."""
+    return (np.asarray(a) + np.pi) % (2.0 * np.pi) - np.pi
+
+
+def translate_transform_to_new_center_of_rotation(
+    all_pred_translations, all_pred_angles, all_pred_centers,
+    all_gt_pc1centers,
+) -> np.ndarray:
+    """Predicted translations re-expressed for a rotation about the GT
+    centre instead of the predicted one, ``t' = -(c_new - c_old) +
+    Rz(a) (c_new - c_old) + t`` (reference pointcloud.py:309-318),
+    vectorised."""
+    t = np.asarray(all_pred_translations, dtype=np.float64).reshape(-1, 3)
+    a = np.asarray(all_pred_angles, dtype=np.float64).reshape(-1)
+    shift = (
+        np.asarray(all_gt_pc1centers, dtype=np.float64).reshape(-1, 3)
+        - np.asarray(all_pred_centers, dtype=np.float64).reshape(-1, 3)
+    )
+    rotated_shift = np.einsum("bij,bj->bi", rotation_matrix_z(a), shift)
+    return (-shift + rotated_shift + t).astype(t.dtype)

@@ -105,7 +105,8 @@ def _backbone(spec: ModelSpec, sizes: Sequence[int]) -> nn.Module:
     return make_backbone(spec.backbone, 3, sizes,
                          approx_knn=spec.dgcnn_approx_knn,
                          knn_impl=spec.dgcnn_knn_impl,
-                         fused_train=spec.dgcnn_fused_train)
+                         fused_train=spec.dgcnn_fused_train,
+                         stable_max_grad=spec.stable_max_grad)
 
 
 class TransformerNet(nn.Module):

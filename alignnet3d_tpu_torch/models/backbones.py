@@ -15,17 +15,29 @@ import torch
 from torch import nn
 
 from alignnet3d_tpu_torch.models.batchnorm import EmaBatchNorm
+from alignnet3d_tpu_torch.ops.edge_train_kernels import fused_edge_stage_train
 from alignnet3d_tpu_torch.ops.knn import gather_rows, knn, pairwise_distance
 from alignnet3d_tpu_torch.ops.knn_kernels import knn_points
+from alignnet3d_tpu_torch.ops.stable_max import stable_max
+
+
+def _pool(stable: bool):
+    """The max-pool of the training graph: ``stable_max`` gives the
+    gradient to the first argmax (``model.options.stable_max_grad``),
+    ``torch.amax`` splits it over ties, as ``jnp.max`` does. Forward values
+    are the same either way."""
+    return stable_max if stable else torch.amax
 
 
 class PointNetBackbone(nn.Module):
     """dense -> BN -> relu per point for each width, then the channel-wise
     max over the N points: (B, N, C) -> (B, layer_sizes[-1])."""
 
-    def __init__(self, in_features: int, layer_sizes: Sequence[int]):
+    def __init__(self, in_features: int, layer_sizes: Sequence[int],
+                 stable_max_grad: bool = False):
         super().__init__()
         self.num_layers = len(layer_sizes)
+        self.stable_max_grad = stable_max_grad
         widths = (in_features, *layer_sizes)
         for i in range(self.num_layers):
             self.add_module(f"conv{i + 1}", nn.Linear(widths[i], widths[i + 1]))
@@ -36,8 +48,7 @@ class PointNetBackbone(nn.Module):
         for i in range(1, self.num_layers + 1):
             x = getattr(self, f"conv{i}")(x)
             x = torch.relu(getattr(self, f"bn{i}")(x, momentum))
-        # amax splits the gradient evenly across ties, as jnp.max does
-        return torch.amax(x, dim=1)
+        return _pool(self.stable_max_grad and self.training)(x, 1)
 
 
 class DGCNNBackbone(nn.Module):
@@ -50,11 +61,17 @@ class DGCNNBackbone(nn.Module):
     ``knn_impl='pallas'`` (the default, the JAX package's name) builds the
     graph with ``knn_points``, the CUDA kernel on the card; ``'xla'`` takes
     ``knn(pairwise_distance(x))``. Both give the same neighbours, ties to
-    the lower index."""
+    the lower index.
+
+    ``fused_train`` runs the two edge layers of a train-mode forward with
+    exactly three widths through ``fused_edge_stage_train`` (the CUDA
+    kernels on the card), with the same parameters and buffers; eval mode
+    ignores it."""
 
     def __init__(self, in_features: int, layer_sizes: Sequence[int],
                  k: int = 20, approx_knn: bool = False,
-                 knn_impl: str = "pallas", fused_train: bool = False):
+                 knn_impl: str = "pallas", fused_train: bool = False,
+                 stable_max_grad: bool = False):
         super().__init__()
         if len(layer_sizes) < 2:
             raise ValueError("dgcnn needs >= 2 layers")
@@ -65,6 +82,7 @@ class DGCNNBackbone(nn.Module):
         self.approx_knn = approx_knn
         self.knn_impl = knn_impl
         self.fused_train = fused_train
+        self.stable_max_grad = stable_max_grad
         widths = (2 * in_features, *layer_sizes)
         for i in range(self.num_layers):
             self.add_module(f"conv{i + 1}", nn.Linear(widths[i], widths[i + 1]))
@@ -78,12 +96,19 @@ class DGCNNBackbone(nn.Module):
         return knn(pairwise_distance(x), k, approximate=self.approx_knn)
 
     def forward(self, points: torch.Tensor, momentum: float = 0.9) -> torch.Tensor:
-        if self.fused_train and self.training and self.num_layers == 3:
-            raise NotImplementedError(
-                "the fused DGCNN training stage (fused_edge_stage_train) is "
-                "not ported yet (ROADMAP.md, Queue 2 item 5)")
+        pool = _pool(self.stable_max_grad and self.training)
         x = points.to(torch.float32)
         nn_idx = self.graph(x.detach())
+        if self.fused_train and self.training and self.num_layers == 3:
+            h = self._fused_edge_layers(x, nn_idx, momentum)
+        else:
+            h = self._edge_layers(x, nn_idx, momentum, pool)
+        i = self.num_layers
+        h = getattr(self, f"conv{i}")(h)
+        h = torch.relu(getattr(self, f"bn{i}")(h, momentum))
+        return pool(h, 1)
+
+    def _edge_layers(self, x, nn_idx, momentum, pool):
         # conv1 is linear in the edge feature [x_i, x_j - x_i]:
         #   conv1(edge_ij) = U_i + V_j - b,  U = conv1([x, -x]), V = conv1([0, x])
         # written as the JAX module writes it, which rounds differently from
@@ -98,11 +123,38 @@ class DGCNNBackbone(nn.Module):
         for i in range(2, self.num_layers):
             h = getattr(self, f"conv{i}")(h)
             h = torch.relu(getattr(self, f"bn{i}")(h, momentum))
-        h = torch.amax(h, dim=2)  # max over the neighbours
-        i = self.num_layers
-        h = getattr(self, f"conv{i}")(h)
-        h = torch.relu(getattr(self, f"bn{i}")(h, momentum))
-        return torch.amax(h, dim=1)
+        return pool(h, 2)  # max over the neighbours
+
+    def _fused_edge_layers(self, x, nn_idx, momentum):
+        """conv1/bn1/conv2/bn2 and the max over k in one fused stage; its
+        batch statistics feed the two BNs' running averages."""
+        bn1, bn2 = self.bn1, self.bn2
+        out, (mu1, var1, mu2, var2) = fused_edge_stage_train(
+            x, nn_idx, self.conv1.weight.t(), self.conv1.bias, bn1.scale,
+            bn1.bias, self.conv2.weight.t(), self.conv2.bias, bn2.scale,
+            bn2.bias, eps=bn1.eps)
+        bn1.ema_update(mu1, var1, momentum)
+        bn2.ema_update(mu2, var2, momentum)
+        return out
+
+
+class Dropout(nn.Module):
+    """flax's dropout: in training, keep each unit with probability
+    ``keep`` and scale it by 1 / keep. The mask is drawn from
+    ``self.generator`` when one is set (the trainer seeds it), else from
+    PyTorch's default generator of the tensor's device."""
+
+    def __init__(self, keep: float):
+        super().__init__()
+        self.keep = keep
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.keep >= 1.0:
+            return x
+        mask = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < self.keep
+        return torch.where(mask, x / self.keep, torch.zeros_like(x))
 
 
 class MLPHead(nn.Module):
@@ -119,7 +171,7 @@ class MLPHead(nn.Module):
             self.add_module(f"fc{i + 1}", nn.Linear(widths[i], widths[i + 1]))
             if i < self.num_layers - 1:
                 self.add_module(f"bn{i + 1}", EmaBatchNorm(widths[i + 1]))
-        self.dropout = (nn.Dropout(p=1.0 - dropout_keep)
+        self.dropout = (Dropout(dropout_keep)
                         if dropout_keep is not None else nn.Identity())
 
     def forward(self, x: torch.Tensor, momentum: float = 0.9) -> torch.Tensor:
@@ -133,11 +185,13 @@ class MLPHead(nn.Module):
 
 def make_backbone(backbone: str, in_features: int,
                   layer_sizes: Sequence[int], approx_knn: bool = False,
-                  knn_impl: str = "pallas",
-                  fused_train: bool = False) -> nn.Module:
+                  knn_impl: str = "pallas", fused_train: bool = False,
+                  stable_max_grad: bool = False) -> nn.Module:
     if backbone == "pointnet":
-        return PointNetBackbone(in_features, layer_sizes)
+        return PointNetBackbone(in_features, layer_sizes,
+                                stable_max_grad=stable_max_grad)
     if backbone == "dgcnn":
         return DGCNNBackbone(in_features, layer_sizes, approx_knn=approx_knn,
-                             knn_impl=knn_impl, fused_train=fused_train)
+                             knn_impl=knn_impl, fused_train=fused_train,
+                             stable_max_grad=stable_max_grad)
     raise ValueError(f"unknown backbone {backbone!r}")

@@ -39,11 +39,17 @@ class EmaBatchNorm(nn.Module):
             mean = torch.mean(xf, dim=dims)
             # tf.nn.moments: biased variance, E[x^2] - E[x]^2
             var = torch.mean(torch.square(xf), dim=dims) - torch.square(mean)
-            with torch.no_grad():
-                m = torch.tensor(momentum, dtype=torch.float32, device=x.device)
-                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
-                self.var.copy_(m * self.var + (1.0 - m) * var)
+            self.ema_update(mean, var, momentum)
         else:
             mean, var = self.mean, self.var
         y = (xf - mean) * torch.rsqrt(var + self.eps)
         return y * self.scale + self.bias
+
+    @torch.no_grad()
+    def ema_update(self, mean: torch.Tensor, var: torch.Tensor,
+                   momentum: float) -> None:
+        """``ema = m * ema + (1 - m) * batch`` for the running statistics;
+        also fed by the fused training edge stage's batch statistics."""
+        m = torch.tensor(momentum, dtype=torch.float32, device=mean.device)
+        self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+        self.var.copy_(m * self.var + (1.0 - m) * var)

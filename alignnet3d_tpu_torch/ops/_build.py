@@ -45,6 +45,23 @@ _SIGNATURES = {
     "nn_argmin_launch": (_P, _P, _P, _I, _I, _I, _P, _P, _P),
     "knn_points_launch": (_P, _I, _I, _I, _P, _P),
     "edge_stage_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "edge_train_stats1_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "edge_train_stats2_launch": (
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+    ),
+    "edge_train_apply_launch": (
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+    ),
+    "edge_train_bwd2_launch": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "edge_train_bwd_mid_launch": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _P, _P,
+    ),
+    "edge_train_bwd_in_launch": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _P, _P, _P,
+    ),
+    "edge_train_reduce_launch": (_P, _I, _I, _P, _P),
 }
 
 

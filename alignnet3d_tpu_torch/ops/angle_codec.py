@@ -64,3 +64,27 @@ def class_logits_to_angle_np(logits: np.ndarray, num_bins: int,
     angle = classes * (TWO_PI / num_bins) + per_class_residual
     # the reference subtracts 2pi only when angle > pi (tp8.py:236-237)
     return np.where(angle > np.pi, angle - TWO_PI, angle)
+
+
+def soft_angle_targets(target_angles_deg: torch.Tensor, num_bins: int,
+                       sigma_in_degree: float) -> torch.Tensor:
+    """Soft per-bin target distribution (B, num_bins) from three Normal
+    CDFs at {t - 360, t, t + 360} degrees, differenced over the bin edges
+    (reference tf_get_target_angle_distribution, tp8.py:253-263). The
+    targets are in DEGREES."""
+    t = target_angles_deg[:, None, None]
+    locs = t + torch.tensor([-360.0, 0.0, 360.0], dtype=t.dtype,
+                            device=t.device)[None, None, :]
+    edges = (torch.arange(num_bins + 1, dtype=torch.float32, device=t.device)
+             * (360.0 / num_bins))[None, :, None]
+    z = (edges - locs) / (sigma_in_degree * np.sqrt(2.0))
+    cdf = 0.5 * (1.0 + torch.erf(z))
+    probs = torch.sum(torch.roll(cdf, -1, dims=1) - cdf, dim=2)
+    return probs[:, :-1]
+
+
+def jax_angle_diff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Signed smallest difference b - a wrapped to (-pi, pi] (reference
+    tf_get_angle_difference, tp8.py:161-164); the JAX package's name."""
+    r = torch.remainder(b - a, TWO_PI)
+    return torch.where(r > np.pi, r - TWO_PI, r)

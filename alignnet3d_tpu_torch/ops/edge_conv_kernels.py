@@ -32,10 +32,11 @@ _CHUNK_ELEMS = {"cpu": 1 << 22, "cuda": 1 << 28}
 
 
 def _split(points, w1, b1):
-    """U = x (P - Q) + b1 and V = x Q, both (B, N, C1) float32."""
+    """U = x (P - Q) + b1 and V = x Q, both (B, N, C1) in the weights'
+    type (float32 on every path; float64 for a reference)."""
     c = points.shape[-1]
     p_w, q_w = w1[:c], w1[c:]
-    x = points.to(torch.float32)
+    x = points.to(w1.dtype)
     return torch.matmul(x, p_w - q_w) + b1, torch.matmul(x, q_w)
 
 

@@ -16,7 +16,17 @@ From the root of a checkout, with nothing built beforehand:
    ``configs/SynthCars40kDGCNN.json`` (DGCNN), counting launches anew;
 6. sends the same requests through the port on the CPU, where it runs the
    twins, and compares the answers;
-7. prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
+7. generates a synthetic dataset (3 x 128 training and 128 validation
+   pairs) and holds the fused training edge stage against its twin at the
+   training shape, forward and backward, and its gradients against
+   float64 on the branch (relu masks, max slots) it took;
+8. trains one epoch (3 steps + the dual eval) of the DGCNN of
+   ``configs/SynthCars40kDGCNNFusedR4.json`` with ``dgcnn_fused_train`` on,
+   through ``Trainer.train()``, counting launches, and compares its first
+   step with the unfused path's from the same weights and batch, the edge
+   layers also under the same cotangent;
+9. trains one epoch of the PointNet of ``configs/SynthCars.json``;
+10. prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
 
 Any failed phase exits non-zero without the last line. So does a machine
 without a CUDA card.
@@ -28,8 +38,10 @@ import concurrent.futures
 import json
 import multiprocessing
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -39,6 +51,9 @@ import torch
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "SynthCars.json"
 DGCNN_CONFIG = ROOT / "configs" / "SynthCars40kDGCNN.json"
+TRAIN_CONFIG = ROOT / "configs" / "SynthCars40kDGCNNFusedR4.json"
+DATA_SHARDS = 8            # worker processes of the dataset generator
+SHARD_TRAIN, SHARD_VAL = 48, 16   # pairs per shard: 384 train, 128 val
 SEED = 0
 PAIRS = 128       # pairs per request, one serving batch
 REQUESTS = (      # (name, align kwargs)
@@ -69,6 +84,24 @@ SENS_DRAWS = 3
 SENS_SHARE = 0.10
 ICP_TOL = (0.01, 0.1)    # m, degrees
 ICP_AGREE = 0.95         # share of ICP pairs within ICP_TOL
+TRAIN_TOL = 1e-4         # edge-train kernel vs twin: out and stats (rtol;
+TRAIN_ATOL = 1e-5        # atol); each gradient's relative L2 error from
+#                          float64 on the kernel's own branch (its relu
+#                          masks and slots), where no rounding flip counts
+TIE_ABS = 1e-5           # a branch float64 does not take lies this near a tie
+STEP_LOSS_RTOL = 1e-5    # fused vs unfused first training step: the loss
+STEP_GRAD_TOL = 1e-3     # and each parameter gradient's relative L2 error;
+#                          the edge layers' gradients under one cotangent
+# The first step's loss and gradients hang on discrete choices (the yaw
+# bins' argmax, the max over points) that rounding can flip. The fused and
+# unfused paths round differently, so beyond the tolerances above their gap
+# is held to STEP_SENS_FACTOR times the largest gap of the unfused path
+# under STEP_SENS_DRAWS draws of a STEP_SENS_REL relative perturbation of
+# its input points (~2 f32 ulps). The edge layers that kernel 5 replaces
+# are held to STEP_GRAD_TOL alone, with the cotangent fixed.
+STEP_SENS_REL = 1e-7
+STEP_SENS_DRAWS = 3
+STEP_SENS_FACTOR = 2.0
 _ONE_THREAD = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
 
 
@@ -361,6 +394,542 @@ def fused_edge_stage_phase(spec, state, graph):
     return result
 
 
+def _dataset_shard(args):
+    """One shard of the training dataset, by the port's generator."""
+    from alignnet3d_tpu_torch.data.synthetic import generate_dataset
+
+    path, shard = args
+    generate_dataset(path, SHARD_TRAIN, SHARD_VAL, seed=SEED * 1000 + shard)
+    return path
+
+
+def make_dataset(basepath: str):
+    """DATA_SHARDS shards generated in worker processes, merged into one
+    dataset directory (train indices first, then val)."""
+    shards = [(os.path.join(basepath, f"shard{i}"), i)
+              for i in range(DATA_SHARDS)]
+    ctx = multiprocessing.get_context("spawn")
+    saved = {k: os.environ.get(k) for k in _ONE_THREAD}
+    os.environ.update(dict.fromkeys(_ONE_THREAD, "1"))
+    try:
+        with concurrent.futures.ProcessPoolExecutor(
+                DATA_SHARDS, mp_context=ctx) as pool:
+            paths = list(pool.map(_dataset_shard, shards))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    for sub in ("meta", "pointcloud1", "pointcloud2", "split"):
+        os.makedirs(os.path.join(basepath, sub), exist_ok=True)
+    splits = {"train": [], "val": []}
+    n = 0
+    for split, per in (("train", SHARD_TRAIN), ("val", SHARD_VAL)):
+        for path in paths:
+            with open(os.path.join(path, "split", f"{split}.txt")) as f:
+                idxs = [int(x) for x in f.read().split()]
+            check(len(idxs) == per, f"dataset shard {path}: {len(idxs)} "
+                  f"{split} pairs")
+            for i in idxs:
+                for sub, ext in (("meta", "json"), ("pointcloud1", "npy"),
+                                 ("pointcloud2", "npy")):
+                    os.replace(os.path.join(path, sub, f"{i:08d}.{ext}"),
+                               os.path.join(basepath, sub, f"{n:08d}.{ext}"))
+                splits[split].append(n)
+                n += 1
+    for split, idxs in splits.items():
+        with open(os.path.join(basepath, "split", f"{split}.txt"), "w") as f:
+            f.write("\n".join(str(i) for i in idxs) + "\n")
+    for path in paths:
+        shutil.rmtree(path)
+    return splits
+
+
+def train_config(path: Path, basepath: str, logdir: str, **options):
+    """The config at ``path`` for one epoch on the generated dataset, with
+    ``model.options`` overridden by ``options``."""
+    from alignnet3d_tpu_torch.config import config_from_dict
+
+    with open(path) as f:
+        d = json.load(f)
+    d["data"]["basepath"] = basepath
+    d["logging"] = {"basedir": logdir, "logdir": logdir}
+    d["model"]["options"].update(options)
+    d["training"]["num_epochs"] = 1
+    return config_from_dict(d)
+
+
+def _absorbed_biases(names):
+    """conv{i}/fc{i} biases of the model with a bn{i} after them."""
+    out = {}
+    for name in names:
+        head, _, leaf = name.rpartition(".")
+        parent, _, layer = head.rpartition(".")
+        if leaf == "bias" and layer[:-1] in ("conv", "fc"):
+            bn = f"{parent}.bn{layer[-1]}.bias"
+            if bn in names:
+                out[name] = bn
+    return out
+
+
+def _gathered(v, idx):
+    """Row idx[b, i, t] of v's cloud b, for every edge: (B, N, k, C)."""
+    bsz, n, c = v.shape
+    rows = (idx + (torch.arange(bsz, device=idx.device) * n)[:, None, None])
+    return v.reshape(bsz * n, c).index_select(0, rows.reshape(-1)).reshape(
+        *idx.shape, c)
+
+
+def _edge_bn_outputs(x, idx, params, mask1=None):
+    """(y1, y2): BN1(pre1) and BN2(pre2) of every edge before their relus,
+    by the twin's operations in x's dtype (the twin's own values in f32).
+    ``mask1`` given, h1 is y1 where it is true and 0 elsewhere, in place of
+    relu(y1)."""
+    from alignnet3d_tpu_torch.ops import edge_train_kernels as et
+    from alignnet3d_tpu_torch.ops.edge_conv_kernels import _split
+
+    w1, b1, g1, be1, w2, b2, g2, be2 = params
+    u, v = _split(x, w1, b1)
+    y1 = et._batch_norm_train(u[:, :, None, :] + _gathered(v, idx), g1, be1,
+                              et.EPS)[0]
+    h1 = torch.relu(y1) if mask1 is None else torch.where(mask1, y1, 0.0)
+    pre2 = torch.matmul(h1, w2) + b2
+    return y1, et._batch_norm_train(pre2, g2, be2, et.EPS)[0]
+
+
+def _kernel_mask1(u, v, bn1, idx):
+    """The kernel's first-layer relu mask, rebuilt from its saved U, V and
+    (mu1, r1, g1, be1) table: pre1 and xhat1 = (pre1 - mu1) r1 are its f32
+    operations, and h1 = fmaf(xhat1, g1, be1) > 0 has the sign of the exact
+    value, taken in float64. Also the mask had it rounded the product
+    before the add."""
+    xh = (u[:, :, None, :] + _gathered(v, idx) - bn1[0]) * bn1[1]
+    fused = xh.double() * bn1[2].double() + bn1[3].double() > 0
+    return fused, xh * bn1[2] + bn1[3] > 0
+
+
+def _branch_grads(x, idx, params, dout, mask1, slot, live):
+    """The stage's gradients in float64 on one branch: the first layer's
+    relu mask, the max's slots and the output's relu mask fixed to those a
+    float32 evaluation took. What separates that evaluation from these is
+    its arithmetic alone."""
+    x64 = x.double().requires_grad_()
+    p64 = [p.double().requires_grad_() for p in params]
+    y2 = _edge_bn_outputs(x64, idx, p64, mask1)[1]
+    out = torch.where(live, torch.gather(y2, 2, slot[:, :, None]).squeeze(2),
+                      0.0)
+    return [g.float() for g in torch.autograd.grad(out, [x64, *p64],
+                                                   dout.double())]
+
+
+def _branches(x, idx, params, dout, kernel, twin):
+    """The branch each evaluation took (the first layer's relu mask, the
+    max's slots, the output's relu mask) for the kernel, ``kernel`` = (out,
+    grads, U, V, BN1 table, int32 slots), and for the twin, ``twin`` =
+    (out, grads, slots); then each one's gradient errors from float64 on
+    its own branch. Returns (flips, tie, sep, errs_kernel, errs_twin):
+    ``flips`` the shares of entries that differ, kernel vs twin, kernel vs
+    float64 and twin vs float64; ``tie`` how near to a tie (float64 |y1|,
+    h2 gap between the two slots, max h2) the farthest disagreement of the
+    kernel with float64 lies; ``sep`` the edges where the kernel's mask
+    would differ had it rounded its product before the add."""
+    from alignnet3d_tpu_torch.ops import edge_train_kernels as et
+
+    out, grads, u, v, bn1, slot = kernel
+    r_out, r_grads, r_slot = twin
+    with torch.no_grad():
+        mask_k, mask_k_sep = _kernel_mask1(u, v, bn1, idx)
+        sep = int((mask_k != mask_k_sep).sum())
+        del mask_k_sep
+        mask_t = _edge_bn_outputs(x, idx, params)[0] > 0
+        y1e, y2e = _edge_bn_outputs(x.double(), idx,
+                                    [p.double() for p in params])
+        mask_e = y1e > 0
+        h2e = torch.relu(y2e)
+        del y2e
+        slot_e, live_e = torch.argmax(h2e, dim=2), h2e.amax(2) > 0
+        slot_k, live_k, live_t = slot.long(), out > 0, r_out > 0
+
+        def share(a, b):
+            return float((a != b).double().mean())
+
+        flips = {what: [share(*ab) for ab in ((k_, t_), (k_, e_), (t_, e_))]
+                 for what, (k_, t_, e_) in (
+                     ("h1 mask", (mask_k, mask_t, mask_e)),
+                     ("slot", (slot_k, r_slot, slot_e)),
+                     ("out > 0", (live_k, live_t, live_e)))}
+
+        def worst(gap, where):
+            return float(gap[where].max()) if bool(where.any()) else 0.0
+
+        at = (h2e.gather(2, slot_k[:, :, None])
+              - h2e.gather(2, slot_e[:, :, None]))[:, :, 0]
+        tie = max(worst(y1e.abs(), mask_k != mask_e),
+                  worst(at.abs(), (slot_k != slot_e) & live_k & live_e),
+                  worst(h2e.amax(2), live_k != live_e))
+        del y1e, h2e, at, mask_e
+    torch.cuda.empty_cache()
+    errs_k = et.grad_errors(grads, _branch_grads(
+        x, idx, params, dout, mask_k, slot_k, live_k))
+    errs_t = et.grad_errors(r_grads, _branch_grads(
+        x, idx, params, dout, mask_t, r_slot, live_t))
+    return flips, tie, sep, errs_k, errs_t
+
+
+def fused_edge_stage_train_phase(basepath: str):
+    """Kernel 5 against its twin at the training shape: the first training
+    batch (2 x PAIRS clouds of N points, centred), k=20 over its
+    ``knn_points`` graph, C1=64, C2=128; seeded weights and cotangent."""
+    from alignnet3d_tpu_torch.data.provider import PackedDataset, getDataFiles
+    from alignnet3d_tpu_torch.ops import edge_train_kernels as et
+    from alignnet3d_tpu_torch.ops import knn_kernels as kk
+
+    n, k, c1, c2 = 512, 20, 64, 128
+    ds = PackedDataset(basepath)
+    train = getDataFiles(f"{basepath}/split/train.txt")[:PAIRS]
+    batch = ds.sample_batch(train, n, np.random.default_rng(SEED))
+    pts = np.concatenate([batch[0], batch[1]])
+    x = torch.from_numpy(pts - pts.mean(axis=1, keepdims=True)).cuda()
+    idx = kk.knn_points(x, k)
+    rng = np.random.default_rng(SEED + 5)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).cuda()
+
+    def xavier(fan_in, fan_out):
+        lim = np.sqrt(6.0 / (fan_in + fan_out))
+        return rng.uniform(-lim, lim, (fan_in, fan_out))
+
+    params = [t(xavier(6, c1)), t(rng.uniform(-0.2, 0.2, c1)),
+              t(rng.uniform(0.5, 2.0, c1)), t(rng.uniform(-0.2, 0.2, c1)),
+              t(xavier(c1, c2)), t(rng.uniform(-0.2, 0.2, c2)),
+              t(rng.uniform(0.5, 2.0, c2)), t(rng.uniform(-0.2, 0.2, c2))]
+    dout = t(rng.normal(size=(x.shape[0], n, c2)))
+
+    def run(fn, keep=None):
+        xs = x.clone().requires_grad_()
+        ps = [p.clone().requires_grad_() for p in params]
+        out, stats = fn(xs, idx, *ps)
+        kept = keep(out.grad_fn.saved_tensors) if keep else None
+        grads = torch.autograd.grad(out, [xs, *ps], dout)
+        return out.detach(), stats, grads, kept
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    # the kernel's U, V, BN1 table and int32 slot map; the twin's
+    # stable_max argmax
+    out, stats, grads, (u, v, bn1, slot) = run(
+        et.fused_edge_stage_train, lambda s: (s[5], s[6], s[7], s[10]))
+    torch.cuda.synchronize()
+    mem_kernel = torch.cuda.max_memory_allocated() - base
+    grads2 = run(et.fused_edge_stage_train)[2]
+    torch.cuda.reset_peak_memory_stats()
+    r_out, r_stats, r_grads, r_slot = run(et.fused_edge_stage_train_plain,
+                                          lambda s: s[0][:, :, 0])
+    torch.cuda.synchronize()
+    mem_plain = torch.cuda.max_memory_allocated() - base
+    # the twin in float64: how far each float32 result is from the exact one
+    x64, p64 = x.double().requires_grad_(), [p.double() for p in params]
+    for p in p64:
+        p.requires_grad_()
+    e_out, _ = et.fused_edge_stage_train_plain(x64, idx, *p64)
+    e_grads = [g.float() for g in torch.autograd.grad(e_out, [x64, *p64],
+                                                      dout.double())]
+    del e_out, x64, p64
+    torch.cuda.empty_cache()
+    err = float((out - r_out).abs().max())
+    ok = torch.allclose(out, r_out, rtol=TRAIN_TOL, atol=TRAIN_ATOL)
+    stat_err = max(float((a - b).abs().max()) for a, b in zip(stats, r_stats))
+    ok &= all(torch.allclose(a, b, rtol=TRAIN_TOL, atol=TRAIN_ATOL)
+              for a, b in zip(stats, r_stats))
+    errs = et.grad_errors(grads, r_grads)
+    errs_k = et.grad_errors(grads, e_grads)
+    errs_t = et.grad_errors(r_grads, e_grads)
+    repeat = max(float((a - b).abs().max()) for a, b in zip(grads, grads2))
+    flips, tie, sep, errs_kb, errs_tb = _branches(
+        x, idx, params, dout, (out, grads, u, v, bn1, slot),
+        (r_out, r_grads, r_slot))
+
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: et.fused_edge_stage_train(x, idx, *params))
+    ms = cuda_ms(lambda: run(et.fused_edge_stage_train), iters=5)
+    plain_ms = cuda_ms(lambda: run(et.fused_edge_stage_train_plain), iters=3)
+    print(f"fused_edge_stage_train B={x.shape[0]} N={n} k={k} C1={c1} "
+          f"C2={c2}: out max_abs_err={err:.3e}, stats max_abs_err="
+          f"{stat_err:.3e} (rtol {TRAIN_TOL}, atol {TRAIN_ATOL})")
+    for what, (kt, ke, te) in flips.items():
+        print(f"fused_edge_stage_train {what} differing: kernel vs twin "
+              f"{kt:.3e}, kernel vs float64 {ke:.3e}, twin vs float64 "
+              f"{te:.3e}")
+    print(f"fused_edge_stage_train every branch disagreement with float64 "
+          f"lies within {tie:.3e} of a tie (limit {TIE_ABS}); the kernel's "
+          f"h1 mask rebuilt with a rounded product differs at {sep} edges")
+    for label, e in (("kernel vs twin", errs), ("kernel vs float64", errs_k),
+                     ("twin vs float64", errs_t),
+                     ("kernel vs float64 on the kernel's branch", errs_kb),
+                     ("twin vs float64 on the twin's branch", errs_tb)):
+        print(f"fused_edge_stage_train gradient rel L2 errors, {label}: "
+              + ", ".join(f"{k_}={v:.2e}" for k_, v in e.items()))
+    print(f"fused_edge_stage_train two backward runs: max abs difference "
+          f"{repeat:.3e}")
+    print(f"fused_edge_stage_train kernel forward {fwd_ms:.4f} ms, forward+"
+          f"backward {ms:.4f} ms; twin forward+backward {plain_ms:.4f} ms "
+          f"(CUDA events); peak device memory above the inputs: kernel "
+          f"{mem_kernel / 2**20:.1f} MiB, twin {mem_plain / 2**20:.1f} MiB")
+    check(ok, "fused_edge_stage_train disagrees with its twin (forward)")
+    check(tie <= TIE_ABS, "fused_edge_stage_train takes a branch that "
+          "float64 does not, away from a tie")
+    check(max(errs_kb.values()) <= TRAIN_TOL,
+          "fused_edge_stage_train gradients disagree with float64 on the "
+          "kernel's own branch")
+    # The function's least work: one forward product pass (relu(BN2(.)) is
+    # monotone in pre2 per channel, so the BN2 sums and the max and min of
+    # pre2 come from one pass) and three backward (pre2 again, dW2, dh1,
+    # with dh1 kept), each 2 E C1 C2 FLOPs on the FP32 pipes. Bytes: f,
+    # idx, weights and dout in, out, df and the weight gradients out
+    edges = x.shape[0] * n * k
+    flops = 4 * 2.0 * edges * c1 * c2
+    nbytes = (4 * (2 * x.numel() + 2 * dout.numel()) + idx.numel() * 8
+              + 8 * sum(p.numel() for p in params))
+    return (err, ms, plain_ms, *bound(flops, FP32_FLOPS, nbytes))
+
+
+def _first_step_grads(trainer, batch):
+    """The loss and parameter gradients of one training step."""
+    metrics = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    return (float(metrics["losses/loss"]),
+            [p.grad.detach().clone() for p in trainer.model.parameters()])
+
+
+def _step_ms(trainer, batch, steps: int = 3):
+    """Host-clock time of one training step, over ``steps`` steps that end
+    in a synchronize, after one warm-up step; and the peak memory of a step."""
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    return ((time.perf_counter() - t0) / steps * 1e3,
+            torch.cuda.max_memory_allocated())
+
+
+def _check_trained(logdir: str, model: str):
+    ev = os.path.join(logdir, "val", "eval000000")
+    for name in ("eval.json", "eval_180.json", "pred_translations.npy"):
+        check(os.path.isfile(os.path.join(ev, name)),
+              f"{model} training wrote no {name}")
+    for name in ("model.ckpt.pt", "model-0.pt", "config.json"):
+        check(os.path.isfile(os.path.join(logdir, name)),
+              f"{model} training wrote no {name}")
+    with open(os.path.join(logdir, "train", "scalars.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [r["losses/loss"] for r in rows]
+    check(len(rows) == 3 and all(np.isfinite(losses)),
+          f"{model} training: losses {losses}")
+    with open(os.path.join(ev, "eval.json")) as f:
+        levels = json.load(f)["corr_levels"]
+    print(f"{model} training: step losses {[round(v, 5) for v in losses]}, "
+          f"eval corr_levels {levels}")
+
+
+def _capture_edge_stages(model):
+    """(snapshot, seen): a copy of each DGCNN backbone of ``model`` as it is
+    now, and, filled by the next train-mode forward and backward, the input
+    points, graph and momentum of each backbone's fused edge stage and the
+    cotangent its output receives."""
+    import copy
+
+    from alignnet3d_tpu_torch.models.backbones import DGCNNBackbone
+
+    snapshot, seen = {}, {}
+    for name, mod in model.named_modules():
+        if not isinstance(mod, DGCNNBackbone):
+            continue
+        snapshot[name] = copy.deepcopy(mod)
+
+        def fused(x, nn_idx, momentum, _mod=mod, _name=name):
+            rec = seen[_name] = {"x": x.detach().clone(), "idx": nn_idx,
+                                 "momentum": momentum}
+            out = DGCNNBackbone._fused_edge_layers(_mod, x, nn_idx, momentum)
+            out.register_hook(lambda g: rec.update(dout=g.detach()))
+            return out
+
+        mod._fused_edge_layers = fused
+    return snapshot, seen
+
+
+def _edge_layer_errors(model, snapshot, seen):
+    """Relative L2 error of each conv1/bn1/conv2/bn2 gradient that ``model``
+    holds after a fused step against the unfused edge layers of the same
+    backbones before the step (``snapshot``), run on the points and graph
+    the fused stages saw, under the cotangents they received: the heads'
+    and the pool over points' choices cannot differ."""
+    from alignnet3d_tpu_torch.models.backbones import _pool
+    from alignnet3d_tpu_torch.ops import edge_train_kernels as et
+
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    absorbed = {"conv1.bias": "bn1.bias", "conv2.bias": "bn2.bias"}
+    errs = {}
+    for name, rec in seen.items():
+        bb = snapshot[name].train()
+        leaves = [(n, p) for n, p in bb.named_parameters()
+                  if n.split(".")[0] in ("conv1", "bn1", "conv2", "bn2")]
+        h = bb._edge_layers(rec["x"], rec["idx"], rec["momentum"],
+                            _pool(bb.stable_max_grad))
+        ref = torch.autograd.grad(h, [p for _, p in leaves], rec["dout"])
+        names = [n for n, _ in leaves]
+        got = [grads[f"{name}.{n}"] for n in names]
+        errs.update((f"{name}.{n}", e) for n, e in
+                    et.grad_errors(got, ref, names, absorbed).items())
+    return errs
+
+
+def dgcnn_training_phase(basepath: str, workdir: str):
+    """One epoch of the fused DGCNN through ``Trainer.train()`` with every
+    launch count set to 0 before and read after; then the first step of
+    the fused and the unfused path from the same weights and batch."""
+    from alignnet3d_tpu_torch.ops import edge_train_kernels as et
+    from alignnet3d_tpu_torch.ops import knn_kernels as kk
+    from alignnet3d_tpu_torch.training.trainer import Trainer
+
+    logdir = os.path.join(workdir, "dgcnn_fused")
+    cfg = train_config(TRAIN_CONFIG, basepath, logdir, dgcnn_fused_train=True)
+    trainer = Trainer(cfg, seed=SEED, device="cuda")
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    print(f"DGCNN fused training, 1 epoch (3 steps of {PAIRS} pairs + eval "
+          f"of {PAIRS}): {wall:.1f} s; kernel launches {counts}")
+    _check_trained(logdir, "DGCNN fused")
+    steps = trainer.step
+    # 10 launches of kernel 5 per backbone per step, 3 backbones a step;
+    # knn_points: 3 a training step and 3 a forward of the eval batch
+    check(counts["fused_edge_stage_train"] == 30 * steps,
+          f"fused_edge_stage_train: {counts['fused_edge_stage_train']} "
+          f"launches, expected {30 * steps}")
+    check(counts["knn_points"] == 3 * steps + 3,
+          f"knn_points: {counts['knn_points']} launches, expected "
+          f"{3 * steps + 3}")
+
+    # fused vs unfused: the same seeded weights, batch and generators; the
+    # unfused path again on STEP_SENS_DRAWS perturbed copies of the batch
+    train = trainer.train_indices[:PAIRS]
+    batch = trainer.dataset.sample_batch(train, trainer.spec.num_points,
+                                         np.random.default_rng(SEED + 6))
+    rng = np.random.default_rng(SEED + 7)
+    runs = [("fused", True, batch), ("unfused", False, batch)]
+    for d in range(STEP_SENS_DRAWS):
+        runs.append((f"perturbed{d}", False, tuple(
+            (a * (1.0 + STEP_SENS_REL * rng.standard_normal(a.shape))).astype(
+                np.float32) if i < 2 else a for i, a in enumerate(batch))))
+    results = {}
+    for name, fused, b in runs:
+        cfg = train_config(TRAIN_CONFIG, basepath,
+                           os.path.join(workdir, f"step_{name}"),
+                           dgcnn_fused_train=fused)
+        tr = Trainer(cfg, seed=SEED, device="cuda")
+        tr.init_state()
+        if fused:
+            snapshot, seen = _capture_edge_stages(tr.model)
+        loss, grads = _first_step_grads(tr, b)
+        if fused:
+            check(len(seen) == 3 and all("dout" in r for r in seen.values()),
+                  f"fused edge stages seen: {sorted(seen)}")
+            edge_errs = _edge_layer_errors(tr.model, snapshot, seen)
+            for mod in tr.model.modules():  # the class's own method again
+                mod.__dict__.pop("_fused_edge_layers", None)
+            del snapshot, seen
+        timing = _step_ms(tr, b) if not name.startswith("perturbed") else None
+        names = [n for n, _ in tr.model.named_parameters()]
+        results[name] = (loss, grads, timing)
+        del tr
+        torch.cuda.empty_cache()
+    (lf, gf, (msf, pkf)), (lu, gu, (msu, pku)) = (results["fused"],
+                                                  results["unfused"])
+    absorbed = _absorbed_biases(names)
+    errs = et.grad_errors(gf, gu, names, absorbed)
+    loss_sens, sens = 0.0, dict.fromkeys(names, 0.0)
+    for d in range(STEP_SENS_DRAWS):
+        lp, gp, _ = results[f"perturbed{d}"]
+        s = et.grad_errors(gp, gu, names, absorbed)
+        w = max(s, key=s.get)
+        print(f"DGCNN first step, unfused vs its input x (1 + "
+              f"{STEP_SENS_REL:g} noise), draw {d}: loss rel gap "
+              f"{abs(lp - lu) / abs(lu):.2e}; worst gradient rel L2 error "
+              f"{s[w]:.2e} ({w})")
+        loss_sens = max(loss_sens, abs(lp - lu))
+        sens = {n_: max(sens[n_], s[n_]) for n_ in names}
+    worst = max(errs, key=errs.get)
+    worst_edge = max(edge_errs, key=edge_errs.get)
+    print(f"DGCNN first step, fused vs unfused: loss {lf:.7f} vs {lu:.7f} "
+          f"(rel gap {abs(lf - lu) / abs(lu):.2e}, rtol {STEP_LOSS_RTOL}); "
+          f"worst gradient rel L2 error {errs[worst]:.2e} ({worst}; tol "
+          f"{STEP_GRAD_TOL} or {STEP_SENS_FACTOR:g} x its largest gap "
+          f"under noise, {STEP_SENS_FACTOR * sens[worst]:.2e})")
+    print(f"DGCNN first step, edge layers (conv1/bn1/conv2/bn2) fused vs "
+          f"unfused under the fused stages' cotangents: worst gradient rel "
+          f"L2 error {edge_errs[worst_edge]:.2e} ({worst_edge}; tol "
+          f"{STEP_GRAD_TOL}); "
+          + ", ".join(f"{n_}={v:.1e}" for n_, v in edge_errs.items()))
+    print(f"DGCNN training step, {PAIRS} pairs (host clock, ends in a "
+          f"synchronize): fused {msf:.1f} ms, unfused {msu:.1f} ms; peak "
+          f"device memory fused {pkf / 2**30:.2f} GiB, unfused "
+          f"{pku / 2**30:.2f} GiB")
+    check(max(edge_errs.values()) <= STEP_GRAD_TOL,
+          "fused and unfused edge layers' gradients differ")
+    check(abs(lf - lu) <= max(STEP_LOSS_RTOL * abs(lu),
+                              STEP_SENS_FACTOR * loss_sens),
+          "fused and unfused first-step losses differ")
+    check(all(errs[n_] <= max(STEP_GRAD_TOL, STEP_SENS_FACTOR * sens[n_])
+              for n_ in names),
+          "fused and unfused first-step gradients differ")
+    return counts
+
+
+def pointnet_training_phase(basepath: str, workdir: str):
+    """One epoch (3 steps + eval) of the PointNet at SynthCars width."""
+    from alignnet3d_tpu_torch.training.trainer import Trainer
+
+    logdir = os.path.join(workdir, "pointnet")
+    trainer = Trainer(train_config(CONFIG, basepath, logdir), seed=SEED,
+                      device="cuda")
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    print(f"PointNet training, 1 epoch (3 steps of {PAIRS} pairs + eval "
+          f"of {PAIRS}): {time.perf_counter() - t0:.1f} s")
+    _check_trained(logdir, "PointNet")
+    train = trainer.train_indices[:PAIRS]
+    batch = trainer.dataset.sample_batch(train, trainer.spec.num_points,
+                                         np.random.default_rng(SEED + 6))
+    step_ms, peak = _step_ms(trainer, batch)
+    print(f"PointNet training step, {PAIRS} pairs: {step_ms:.1f} ms; peak "
+          f"device memory {peak / 2**30:.2f} GiB")
+
+
+def _wrappers():
+    from alignnet3d_tpu_torch.ops import edge_conv_kernels as ek
+    from alignnet3d_tpu_torch.ops import edge_train_kernels as et
+    from alignnet3d_tpu_torch.ops import knn_kernels as kk
+    from alignnet3d_tpu_torch.ops import nn_kernels as nk
+    from alignnet3d_tpu_torch.ops import pointnet_kernels as pk
+
+    return {"fused_pointnet": pk.fused_pointnet, "nn_argmin": nk.nn_argmin,
+            "knn_points": kk.knn_points,
+            "fused_edge_stage": ek.fused_edge_stage,
+            "fused_edge_stage_train": et.fused_edge_stage_train}
+
+
 def serve(aligner, kinds, requests, sync):
     outs, walls, states = [], [], []
     for (name, kwargs), (pcs1, pcs2) in zip(kinds, requests):
@@ -480,14 +1049,8 @@ def serve_path(spec, state, kinds, requests, owned):
     before and read just after; every kernel in ``owned`` must have
     launched. Cross-check the answers on the CPU. Returns the counts."""
     from alignnet3d_tpu_torch.api import Aligner
-    from alignnet3d_tpu_torch.ops import edge_conv_kernels as ek
-    from alignnet3d_tpu_torch.ops import knn_kernels as kk
-    from alignnet3d_tpu_torch.ops import nn_kernels as nk
-    from alignnet3d_tpu_torch.ops import pointnet_kernels as pk
 
-    wrappers = {"fused_pointnet": pk.fused_pointnet, "nn_argmin": nk.nn_argmin,
-                "knn_points": kk.knn_points,
-                "fused_edge_stage": ek.fused_edge_stage}
+    wrappers = _wrappers()
     # warm-up of every path (cuBLAS handles, allocator), so that the
     # request times below are steady-state times
     warm = Aligner(spec, state, batch_size=PAIRS, seed=SEED + 1, device="cuda")
@@ -587,6 +1150,20 @@ def main() -> int:
                       f"{name}: {counts[name]} launches, expected "
                       f"{3 * len(kinds)}")
 
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        basepath = os.path.join(workdir, "data")
+        t0 = time.perf_counter()
+        splits = make_dataset(basepath)
+        print(f"dataset: {len(splits['train'])} train + {len(splits['val'])} "
+              f"val pairs generated in {time.perf_counter() - t0:.1f} s")
+        k5 = fused_edge_stage_train_phase(basepath)
+        counts = dgcnn_training_phase(basepath, workdir)
+        launches["fused_edge_stage_train"] = counts["fused_edge_stage_train"]
+        pointnet_training_phase(basepath, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
     emb = k1[("embedding", torch.float32)]
     edge = k4["embedding"]
     rows = (  # name, source, TPU kernel, (err, ms, plain, bound, bound_by)
@@ -598,10 +1175,13 @@ def main() -> int:
          "alignnet3d_tpu/ops/knn_kernels.py:68", k3["requests"]),
         ("fused_edge_stage", "edge_stage.cu",
          "alignnet3d_tpu/ops/edge_conv_kernels.py:78", edge),
+        ("fused_edge_stage_train", "edge_train.cu",
+         "alignnet3d_tpu/ops/edge_train_kernels.py:421", k5),
     )
     # library_ms is null: no one PyTorch call computes any of these
     # functions (a fused chain + max, a masked argmin, an ordered top-k
-    # with index ties, a gathered 2-layer chain + max)
+    # with index ties, a gathered 2-layer chain + max, the same with
+    # batch-statistic BN and its gradient)
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"alignnet3d_tpu_torch/csrc/{src}", "replaces": replaces,

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from alignnet3d_tpu_torch.ops import edge_conv_kernels as ek
+from alignnet3d_tpu_torch.ops import edge_train_kernels as et
 from alignnet3d_tpu_torch.ops import knn_kernels as kk
 from alignnet3d_tpu_torch.ops import nn_kernels as nk
 from alignnet3d_tpu_torch.ops import pointnet_kernels as pk
@@ -243,3 +244,123 @@ def test_fused_edge_stage_refuses_what_the_kernel_does_not_take(case, match):
         b2 = torch.zeros((8000,), device="meta")
     with pytest.raises(ValueError, match=match):
         ek.fused_edge_stage(pts, idx, w1, b1, w2, b2)
+
+
+def _train_inputs(seed, b, n, k, c1, c2, device, distinct=None):
+    """f, idx, the eight parameters and a cotangent of the training stage,
+    at the scales of tests/test_edge_train_kernels.py."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    pts = _cloud(seed, b, n, distinct)
+    idx = kk.knn_points_plain(pts, k).to(device)
+    params = [t(rng.normal(size=(6, c1)) * 0.4),
+              t(rng.normal(size=(c1,)) * 0.1),
+              t(1.0 + 0.2 * rng.normal(size=(c1,))),
+              t(0.1 * rng.normal(size=(c1,))),
+              t(rng.normal(size=(c1, c2)) / np.sqrt(c1)),
+              t(rng.normal(size=(c2,)) * 0.1),
+              t(1.0 + 0.2 * rng.normal(size=(c2,))),
+              t(0.1 * rng.normal(size=(c2,)))]
+    return pts.to(device), idx, params, t(rng.normal(size=(b, n, c2)))
+
+
+def _train_grads(fn, f, idx, params, cot):
+    f = f.clone().requires_grad_()
+    params = [p.clone().requires_grad_() for p in params]
+    out, stats = fn(f, idx, *params)
+    return out.detach(), stats, torch.autograd.grad(out, [f, *params], cot)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,k,c1,c2,distinct", [
+    (2, 40, 5, 8, 16, None),      # the JAX tests' shape
+    (3, 320, 20, 64, 128, None),  # several strips, indices above 256
+    (2, 513, 20, 64, 128, None),  # N one past a multiple of the block
+    (2, 513, 5, 8, 16, None),
+    (4, 128, 20, 64, 128, 5),     # 5-point clouds: exact ties everywhere
+    (2, 97, 20, 13, 40, None),    # widths off the tiles' multiples
+])
+def test_fused_edge_stage_train_matches_twin(sm90, b, n, k, c1, c2, distinct):
+    f, idx, params, cot = _train_inputs(9, b, n, k, c1, c2, sm90, distinct)
+    before = et.fused_edge_stage_train.launches
+    out, stats, grads = _train_grads(et.fused_edge_stage_train, f, idx,
+                                     params, cot)
+    torch.cuda.synchronize()
+    assert et.fused_edge_stage_train.launches == before + 10
+    r_out, r_stats, r_grads = _train_grads(et.fused_edge_stage_train_plain,
+                                           f, idx, params, cot)
+    # f32 FMAs and sums in another order than the twin's
+    torch.testing.assert_close(out, r_out, rtol=1e-4, atol=1e-5)
+    for s, r in zip(stats, r_stats):
+        torch.testing.assert_close(s, r, rtol=1e-4, atol=1e-5)
+    # b1/b2 relative to be1/be2's gradients (et.grad_errors)
+    errs = et.grad_errors(grads, r_grads)
+    assert max(errs.values()) <= 1e-4, errs
+
+
+@pytest.mark.gpu
+def test_fused_edge_stage_train_backward_repeats(sm90):
+    """Everything but dV's atomics is summed in a fixed order: two
+    backward passes give bit-equal gradients of b1, the BNs and the
+    second layer, and df/dW1, which sum dV, within rounding (the
+    atomics land in another order: up to 3.2e-5 relative per element of
+    dW1 on an H100)."""
+    f, idx, params, cot = _train_inputs(10, 8, 512, 20, 64, 128, sm90)
+    _, _, g1 = _train_grads(et.fused_edge_stage_train, f, idx, params, cot)
+    _, _, g2 = _train_grads(et.fused_edge_stage_train, f, idx, params, cot)
+    for i in (2, 3, 4, 5, 6, 7, 8):
+        assert torch.equal(g1[i], g2[i])
+    for a, b in zip(g1[:2], g2[:2]):
+        assert float((a - b).norm() / b.norm()) <= 1e-5
+
+
+def test_grad_errors_scales_absorbed_biases_by_their_shift():
+    ref = [torch.full((4,), 2.0) for _ in et.GRAD_NAMES]
+    ref[2] = torch.zeros(4)          # b1: true gradient 0
+    got = [r + 0.1 for r in ref]
+    errs = et.grad_errors(got, ref)
+    assert list(errs) == list(et.GRAD_NAMES)
+    # |0.1 * 1| / |2 * 1| everywhere: b1 relative to be1's norm, not to 0
+    assert all(abs(e - 0.05) < 1e-6 for e in errs.values()), errs
+
+
+def test_fused_edge_stage_train_cpu_runs_the_twin(monkeypatch):
+    f, idx, params, _ = _train_inputs(11, 2, 30, 5, 8, 16, "cpu")
+    calls = []
+    monkeypatch.setattr(et, "fused_edge_stage_train_plain",
+                        lambda *a, **kw: calls.append(1) or "plain")
+    before = et.fused_edge_stage_train.launches
+    assert et.fused_edge_stage_train(f, idx, *params) == "plain"
+    assert calls == [1] and et.fused_edge_stage_train.launches == before
+
+
+@pytest.mark.parametrize("case,match", [
+    ("meta", "device"),
+    ("int32_idx", "int64"),
+    ("float64_f", "float32"),
+    ("idx_shape", "does not fit"),
+    ("w2_rows", "chain"),
+    ("bn_shape", "chain"),
+    ("wide", "8192"),
+    ("smem", "shared memory"),
+])
+def test_fused_edge_stage_train_refuses_what_the_kernel_does_not_take(
+        case, match):
+    f, idx, params, _ = _train_inputs(12, 2, 30, 20, 8, 16, "meta")
+    if case == "int32_idx":
+        idx = idx.int()
+    elif case == "float64_f":
+        f = f.double()
+    elif case == "idx_shape":
+        idx = idx[:, :29].contiguous()
+    elif case == "w2_rows":
+        params[4] = torch.zeros((9, 16), device="meta")
+    elif case == "bn_shape":
+        params[6] = torch.zeros((15,), device="meta")
+    elif case == "wide":
+        c1, c2 = 128, 128
+        f, idx, params, _ = _train_inputs(12, 2, 30, 5, c1, c2, "meta")
+    elif case == "smem":
+        f, idx, params, _ = _train_inputs(12, 2, 700, 600, 8, 16, "meta")
+    with pytest.raises(ValueError, match=match):
+        et.fused_edge_stage_train(f, idx, *params)

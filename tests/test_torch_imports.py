@@ -1,8 +1,9 @@
-"""The port needs nothing of jax, flax, optax or the JAX package
-``alignnet3d_tpu``: every module of the port, and every module that
-``chip_smoke.py`` imports, imports in a process where they cannot be
-imported, and no source names them. The port keeps its own copies of the
-numpy host code it shares with the JAX package."""
+"""The port needs nothing of jax, flax, optax, tqdm or the JAX package
+``alignnet3d_tpu``: every module of the port (the training modules
+included), and every module that ``chip_smoke.py`` imports, imports in a
+process where they cannot be imported, and no source names them. The port
+keeps its own copies of the numpy host code it shares with the JAX
+package."""
 
 import os
 import re
@@ -13,7 +14,7 @@ import alignnet3d_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG_DIR = os.path.dirname(alignnet3d_tpu_torch.__file__)
-BLOCKED = ("jax", "flax", "optax", "alignnet3d_tpu")
+BLOCKED = ("jax", "flax", "optax", "tqdm", "alignnet3d_tpu")
 
 _BLOCK = """
 import importlib, sys
@@ -47,7 +48,8 @@ def test_every_module_imports_with_jax_blocked():
 
 
 def test_no_source_imports_jax():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax)\b", re.M)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|tqdm)\b",
+                         re.M)
     for root, _, files in os.walk(PKG_DIR):
         for f in files:
             if f.endswith(".py"):
@@ -91,3 +93,18 @@ print(len({mods!r}))
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip().splitlines()[-1]) == len(mods)
+
+
+def test_the_training_slice_is_among_the_modules():
+    """The training path's modules are part of the package the probes
+    above walk."""
+    import pkgutil
+
+    names = {m.name for m in pkgutil.walk_packages(
+        alignnet3d_tpu_torch.__path__, "alignnet3d_tpu_torch.")}
+    assert {"alignnet3d_tpu_torch.training.trainer",
+            "alignnet3d_tpu_torch.training.schedules",
+            "alignnet3d_tpu_torch.models.losses",
+            "alignnet3d_tpu_torch.ops.stable_max",
+            "alignnet3d_tpu_torch.ops.edge_train_kernels",
+            "alignnet3d_tpu_torch.evaluation.metrics"} <= names
