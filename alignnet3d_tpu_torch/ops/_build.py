@@ -42,7 +42,10 @@ _SIGNATURES = {
         _P, _I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_P),
         ctypes.POINTER(_P), _I, _P, _P,
     ),
-    "nn_argmin_launch": (_P, _P, _P, _I, _I, _I, _P, _P, _P),
+    "nn_table_launch": (_P, _P, _I, _I, _I, _P, _P, _P),
+    "nn_argmin_launch": (
+        _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+    ),
     "knn_points_launch": (_P, _I, _I, _I, _P, _P),
     "edge_stage_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
     "edge_train_stats1_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P),

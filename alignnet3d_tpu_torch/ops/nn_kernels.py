@@ -10,12 +10,19 @@ point, with
 and the lowest index on ties. The batch axis is native (the JAX callers
 vmap over it). The CUDA kernel (``csrc/nn_argmin.cu``) and
 ``nn_argmin_plain`` evaluate every product and sum in the same order with
-separate roundings, so on the card they agree bit for bit.
+separate roundings, so on the card they agree bit for bit. The kernel's
+pre-pass builds a column table whose plain version is
+``column_table_plain``.
 """
 
 from __future__ import annotations
 
 import torch
+
+GROUP = 8     # the kernel's column group (csrc/nn_argmin.cu: kGroup)
+# columns a sweep block visits at most; their answers are merged. Fastest of
+# 64-4096 at both the flip and the ICP shape on an H100 (PERF.md)
+CHUNK = 512
 
 # elements of one (B, chunk, n2) distance block: about a megabyte keeps the
 # CPU's passes in cache; on the card a larger block means fewer launches
@@ -81,28 +88,95 @@ def _check(src, dst, dst_mask):
         raise ValueError("nn_argmin: inputs must be contiguous")
 
 
+def column_table_plain(dst: torch.Tensor, dst_mask: torch.Tensor):
+    """The kernel's per-pair column table and column counts, in tensor ops.
+
+    Returns table (B, n2p, 4) float32, one row (-2x, -2y, -2z, |q|^2 or
+    +inf where masked) per destination point and (0, 0, 0, +inf) for the
+    padding up to n2p, a multiple of GROUP; and cols (B,) int32, the columns
+    a sweep must visit: 1 + the last valid index, 0 for a pair with none.
+    The values are the plain version's ``-2 dst`` and masked ``|q|^2``, bit
+    for bit.
+    """
+    n2 = dst.shape[1]
+    pad = -n2 % GROUP
+    if pad:
+        dst = torch.nn.functional.pad(dst, (0, 0, 0, pad))
+        dst_mask = torch.nn.functional.pad(dst_mask, (0, pad))
+    sb = torch.where(dst_mask, _sq_norm(dst),
+                     torch.full_like(dst[..., 0], float("inf")))
+    table = torch.cat([-2.0 * dst, sb[..., None]], dim=-1)
+    pos = torch.arange(1, n2 + pad + 1, dtype=torch.int32, device=dst.device)
+    cols = torch.where(dst_mask, pos, 0).amax(dim=1)
+    return table, cols
+
+
+def column_table(dst: torch.Tensor, dst_mask: torch.Tensor):
+    """``column_table_plain`` for CPU tensors; for CUDA tensors the
+    kernel's own pre-pass, which nn_argmin runs before every sweep."""
+    if dst.device.type == "cpu":
+        return column_table_plain(dst, dst_mask)
+    _check(dst, dst, dst_mask)
+    lib = _library()
+    b, n2, _ = dst.shape
+    n2p = -(-n2 // GROUP) * GROUP
+    table = torch.empty((b, n2p, 4), dtype=torch.float32, device=dst.device)
+    cols = torch.empty((b,), dtype=torch.int32, device=dst.device)
+    with torch.cuda.device(dst.device):
+        rc = lib.nn_table_launch(
+            dst.data_ptr(), dst_mask.data_ptr(), b, n2, n2p, table.data_ptr(),
+            cols.data_ptr(), torch.cuda.current_stream(dst.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"nn_argmin: table launch failed, CUDA error {rc}")
+    return table, cols
+
+
+def _library():
+    from alignnet3d_tpu_torch.ops._build import load_library
+
+    return load_library()
+
+
+def launch(src, dst, dst_mask, chunk: int):
+    """The kernel with ``chunk`` columns a sweep block (CHUNK in
+    ``nn_argmin``): pre-pass, sweep and, for more than one chunk, merge.
+    Returns idx (B, n1) int64, d2 (B, n1) float32."""
+    _check(src, dst, dst_mask)
+    lib = _library()
+    b, n1, _ = src.shape
+    n2 = dst.shape[1]
+    n2p = -(-n2 // GROUP) * GROUP
+    splits = -(-n2p // chunk)
+    # one scratch buffer, in 4-byte words: the column table (16-byte rows
+    # first, so aligned), the column counts, and the chunks' answers
+    n_table, n_cols = b * n2p * 4, -(-b // 4) * 4
+    n_part = b * splits * n1 if splits > 1 else 0
+    scratch = torch.empty(n_table + n_cols + 2 * n_part, dtype=torch.float32,
+                          device=src.device)
+    table = scratch.data_ptr()
+    cols = table + 4 * n_table
+    part_d2 = cols + 4 * n_cols if n_part else None
+    part_idx = part_d2 + 4 * n_part if n_part else None
+    idx = torch.empty((b, n1), dtype=torch.int64, device=src.device)
+    d2 = torch.empty((b, n1), dtype=torch.float32, device=src.device)
+    with torch.cuda.device(src.device):
+        rc = lib.nn_argmin_launch(
+            src.data_ptr(), dst.data_ptr(), dst_mask.data_ptr(), b, n1, n2,
+            n2p, chunk, table, cols, part_d2, part_idx, idx.data_ptr(),
+            d2.data_ptr(), torch.cuda.current_stream(src.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"nn_argmin: kernel launch failed, CUDA error {rc}")
+    return idx, d2
+
+
 def nn_argmin(src: torch.Tensor, dst: torch.Tensor, dst_mask: torch.Tensor):
     """Nearest valid neighbour: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. Returns idx (B, n1) int64, d2 (B, n1) f32."""
     if src.device.type == "cpu":
         return nn_argmin_plain(src, dst, dst_mask)
-    _check(src, dst, dst_mask)
-    from alignnet3d_tpu_torch.ops._build import load_library
-
-    lib = load_library()
-    b, n1, _ = src.shape
-    idx = torch.empty((b, n1), dtype=torch.int64, device=src.device)
-    d2 = torch.empty((b, n1), dtype=torch.float32, device=src.device)
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        rc = lib.nn_argmin_launch(
-            src.data_ptr(), dst.data_ptr(), dst_mask.data_ptr(), b, n1,
-            dst.shape[1], idx.data_ptr(), d2.data_ptr(), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"nn_argmin: kernel launch failed, CUDA error {rc}")
+    out = launch(src, dst, dst_mask, CHUNK)
     nn_argmin.launches += 1
-    return idx, d2
+    return out
 
 
 nn_argmin.launches = 0

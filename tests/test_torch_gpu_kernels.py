@@ -50,6 +50,9 @@ def _chain(seed, b, n, dims, device="cpu"):
     ((3, 64, 128, 256), 300),    # N not a multiple of the point tile
     ((5, 12, 7, 256, 33), 97),   # four layers, widths not multiples of 4
     ((3, 256, 4096), 64),        # shared memory past the 48 KB default
+    ((3, 64, 128, 200), 300),    # last width not a multiple of the column tile
+    ((3, 20, 37), 130),          # last layer narrower than one column tile
+    ((3, 256, 256, 256, 64), 200),  # too wide for 128 points: 64-point tiles
 ])
 @pytest.mark.parametrize("dtype,tol", [
     (torch.float32, 1e-4),   # f32 FMAs in another summation order
@@ -86,6 +89,108 @@ def test_nn_argmin_matches_twin_bit_for_bit(sm90, b, n1, n2, scale):
     ri, rd = nk.nn_argmin_plain(src, dst, mask)
     assert torch.equal(idx, ri)
     assert torch.equal(d2, rd)
+
+
+def _prefix_masks(counts, n2, device):
+    mask = torch.zeros((len(counts), n2), dtype=torch.bool)
+    for i, c in enumerate(counts):
+        mask[i, :c] = True
+    return mask.to(device)
+
+
+def _assert_nn_bit_equal(src, dst, mask):
+    before = nk.nn_argmin.launches
+    idx, d2 = nk.nn_argmin(src, dst, mask)
+    torch.cuda.synchronize()
+    assert nk.nn_argmin.launches == before + 1
+    ri, rd = nk.nn_argmin_plain(src, dst, mask)
+    assert torch.equal(idx, ri)
+    assert torch.equal(d2, rd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n1,n2", [
+    (6, 1100, 700),    # n1 off the row strips, n2 off the tile and the group
+    (6, 2500, 1030),   # several row strips and column chunks
+])
+def test_nn_argmin_prefix_masks(sm90, b, n1, n2):
+    """Ragged prefix masks as ICP pads clouds: a fully masked pair and a
+    pair with one valid column among them."""
+    rng = np.random.default_rng(2)
+    src = torch.from_numpy(
+        (rng.normal(size=(b, n1, 3)) * 10).astype(np.float32)).to(sm90)
+    dst = torch.from_numpy(
+        (rng.normal(size=(b, n2, 3)) * 10).astype(np.float32)).to(sm90)
+    counts = [n2, 0, 1, n2 // 3, n2 - 5, 257][:b]
+    _assert_nn_bit_equal(src, dst, _prefix_masks(counts, n2, sm90))
+
+
+@pytest.mark.gpu
+def test_nn_argmin_exact_ties_and_coincident_points(sm90):
+    """Destination clouds of 7 distinct points (every distance ties), and
+    source points on top of destination points, where the unclamped
+    distance can round to or below 0 and the clamp decides the index."""
+    rng = np.random.default_rng(3)
+    b, n1, n2 = 4, 300, 520
+    base = rng.normal(size=(b, 7, 3)) * 20
+    dst = np.take_along_axis(base, rng.integers(0, 7, (b, n2))[..., None], 1)
+    src = rng.normal(size=(b, n1, 3)) * 20
+    src[:, ::2] = dst[:, rng.integers(0, n2, n1 // 2)]
+    src = torch.from_numpy(src.astype(np.float32)).to(sm90)
+    dst = torch.from_numpy(dst.astype(np.float32)).to(sm90)
+    _assert_nn_bit_equal(src, dst, _prefix_masks([n2, 400, 9, 1], n2, sm90))
+
+
+@pytest.mark.gpu
+def test_nn_argmin_icp_shape(sm90):
+    """128 pairs x 4096 x 4096 with ragged prefix masks (the ICP shape)."""
+    rng = np.random.default_rng(4)
+    b, n = 128, 4096
+    src = torch.from_numpy(
+        (rng.normal(size=(b, n, 3)) * 10).astype(np.float32)).to(sm90)
+    dst = torch.from_numpy(
+        (rng.normal(size=(b, n, 3)) * 10).astype(np.float32)).to(sm90)
+    counts = rng.integers(900, n + 1, b)
+    counts[:4] = (n, 1, 0, 4095)
+    _assert_nn_bit_equal(src, dst, _prefix_masks(counts, n, sm90))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [8, 64, 256, 1000, 1024])
+def test_nn_argmin_every_column_split(sm90, chunk):
+    """The kernel under other column splits than the wrapper's: chunks from
+    one column group to all columns, their answers merged."""
+    rng = np.random.default_rng(5)
+    b, n1, n2 = 3, 777, 1000
+    src = torch.from_numpy(
+        (rng.normal(size=(b, n1, 3)) * 5).astype(np.float32)).to(sm90)
+    base = rng.normal(size=(b, 300, 3)) * 5
+    dst = np.take_along_axis(base, rng.integers(0, 300, (b, n2))[..., None], 1)
+    dst = torch.from_numpy(dst.astype(np.float32)).to(sm90)
+    mask = _prefix_masks([n2, 613, 0], n2, sm90)
+    idx, d2 = nk.launch(src, dst, mask, chunk)
+    ri, rd = nk.nn_argmin_plain(src, dst, mask)
+    assert torch.equal(idx, ri)
+    assert torch.equal(d2, rd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n2", [1000, 37])  # 37: padded to 40 columns
+def test_nn_argmin_column_table_matches_twin(sm90, n2):
+    """The pre-pass kernel's table and column counts against the tensor
+    ops of column_table_plain, bit for bit; holes in the masks."""
+    rng = np.random.default_rng(6)
+    dst = torch.from_numpy(
+        (rng.normal(size=(4, n2, 3)) * 30).astype(np.float32)).to(sm90)
+    mask = torch.from_numpy(rng.random((4, n2)) < 0.5).to(sm90)
+    mask[1] = False
+    mask[2] = False
+    mask[2, 0] = True
+    table, cols = nk.column_table(dst, mask)
+    want_table, want_cols = nk.column_table_plain(dst, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(table, want_table)
+    assert torch.equal(cols, want_cols)
 
 
 def _cloud(seed, b, n, distinct=None, device="cpu"):

@@ -108,3 +108,21 @@ def test_the_training_slice_is_among_the_modules():
             "alignnet3d_tpu_torch.ops.stable_max",
             "alignnet3d_tpu_torch.ops.edge_train_kernels",
             "alignnet3d_tpu_torch.evaluation.metrics"} <= names
+
+
+def test_kernel_bench_and_its_imports_load_with_the_jax_package_blocked():
+    """kernel_bench.py, the kernels' timing script for the card, imports the
+    port and chip_smoke.py only, and loads with jax and the JAX package
+    blocked."""
+    mods = sorted(set(_imports(os.path.join(REPO, "kernel_bench.py"))))
+    roots = {m.split(".")[0] for m in mods}
+    assert {"alignnet3d_tpu_torch", "chip_smoke"} <= roots
+    assert not roots & set(BLOCKED)
+    proc = _run(_BLOCK + f"""
+for name in {mods!r}:
+    importlib.import_module(name)
+import kernel_bench
+print(len({mods!r}))
+""")
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip().splitlines()[-1]) == len(mods)

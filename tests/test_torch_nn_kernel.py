@@ -96,3 +96,54 @@ def test_cpu_tensor_takes_the_twin_without_launching():
                           torch.from_numpy(mask))
     assert nk.nn_argmin.launches == before
     np.testing.assert_array_equal(idx.numpy(), _plain(src, dst, mask)[0])
+
+
+def _np_table(dst, mask):
+    """The kernel's column table in numpy: rows (-2x, -2y, -2z, |q|^2 or
+    +inf), float32 with every product and sum rounded on its own, padded
+    with (0, 0, 0, +inf) to a multiple of nk.GROUP."""
+    b, n2, _ = dst.shape
+    n2p = -(-n2 // nk.GROUP) * nk.GROUP
+    table = np.zeros((b, n2p, 4), np.float32)
+    table[..., 3] = np.inf
+    sq = (dst[..., 0] * dst[..., 0] + dst[..., 1] * dst[..., 1]
+          + dst[..., 2] * dst[..., 2])
+    table[:, :n2, :3] = np.float32(-2.0) * dst
+    table[:, :n2, 3] = np.where(mask, sq, np.float32(np.inf))
+    return table
+
+
+@pytest.mark.parametrize("n2,counts", [
+    (40, (40, 0, 1, 17)),    # a multiple of the group; a fully masked pair
+    (37, (37, 5, 0, 36)),    # padded to 40
+])
+def test_column_table_matches_numpy(n2, counts):
+    rng = np.random.default_rng(n2)
+    dst = (rng.normal(size=(len(counts), n2, 3)) * 10).astype(np.float32)
+    mask = np.arange(n2)[None, :] < np.array(counts)[:, None]
+    table, cols = nk.column_table(torch.from_numpy(dst), torch.from_numpy(mask))
+    assert table.dtype == torch.float32 and cols.dtype == torch.int32
+    np.testing.assert_array_equal(table.numpy(), _np_table(dst, mask))
+    np.testing.assert_array_equal(cols.numpy(), counts)
+
+
+def test_column_count_is_one_past_the_last_valid_column():
+    mask = np.zeros((4, 21), bool)
+    mask[0, [0, 3, 9]] = True     # holes: sweep to the last valid column
+    mask[1, 20] = True
+    mask[2, 0] = True
+    dst = np.ones((4, 21, 3), np.float32)
+    table, cols = nk.column_table(torch.from_numpy(dst), torch.from_numpy(mask))
+    np.testing.assert_array_equal(cols.numpy(), [10, 21, 1, 0])
+    np.testing.assert_array_equal(table.numpy(), _np_table(dst, mask))
+
+
+def test_column_table_is_the_plain_versions_arithmetic():
+    """The table's |q|^2 column is nn_argmin_plain's masked |q|^2 bit for
+    bit (same tensor ops), so the kernel's sums start from the same values."""
+    src, dst, mask = _inputs(6, 3, 20, 64, (64, 10, 0))
+    table, _ = nk.column_table(torch.from_numpy(dst), torch.from_numpy(mask))
+    sq = nk._sq_norm(torch.from_numpy(dst))
+    want = torch.where(torch.from_numpy(mask), sq, float("inf"))
+    assert torch.equal(table[..., 3], want)
+    assert torch.equal(table[..., :3], -2.0 * torch.from_numpy(dst))
