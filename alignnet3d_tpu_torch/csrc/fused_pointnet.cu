@@ -41,6 +41,10 @@
 //   block combines the blocks. These are the int bits of non-negative
 //   floats (relu outputs) into a zero-filled output, where int order is
 //   float order: the result is exact and independent of block order.
+// - NaN propagates as in the plain version (torch.clamp_min, torch.amax)
+//   and the JAX kernel (jnp.maximum, jnp.max): the relu and every max are
+//   max.NaN.f32 (max_nan.cuh), whose NaN is the canonical 0x7fffffff, the
+//   largest int, so a NaN also wins the atomicMax of the blocks.
 // - bf16 rounding is a template parameter, so the f32 kernel carries none
 //   of it.
 
@@ -48,6 +52,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "max_nan.cuh"
 
 namespace {
 
@@ -134,7 +140,7 @@ __device__ __forceinline__ void load_stage(float* ws, int s, int n_ks,
 
 template <bool BF16>
 __device__ __forceinline__ float act(float acc, float bias) {
-  const float v = fmaxf(__fadd_rn(acc, bias), 0.f);
+  const float v = max_nan(__fadd_rn(acc, bias), 0.f);
   return BF16 ? to_bf16(v) : v;
 }
 
@@ -229,14 +235,14 @@ __device__ __forceinline__ void layer(const float* hin, int kpad,
 #pragma unroll
             for (int i = 0; i < MP; ++i) {
               if (i / 4 * 64 + ty * 4 + i % 4 < valid) {
-                m = fmaxf(m, act<BF16>(acc[i][4 * c + j], bj));
+                m = max_nan(m, act<BF16>(acc[i][4 * c + j], bj));
               }
             }
             // lanes l ^ 8, l ^ 16, l ^ 24 hold the same columns of the
             // warp's other three point rows
-            m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 8));
-            m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 16));
-            if ((threadIdx.x & 24) == 0 && n < N && m > 0.f) {
+            m = max_nan(m, __shfl_xor_sync(0xffffffffu, m, 8));
+            m = max_nan(m, __shfl_xor_sync(0xffffffffu, m, 16));
+            if ((threadIdx.x & 24) == 0 && n < N && !(m <= 0.f)) {  // NaN too
               atomicMax(colmax + n, __float_as_int(m));
             }
           }

@@ -46,6 +46,17 @@
 //   answer of one ascending strict-less sweep. The wrapper's chunk
 //   (ops/nn_kernels.py: CHUNK, 512 columns) fills the card at the ICP
 //   shape and leaves the flip shape (512 columns) unsplit.
+// - Non-finite distances stay out of the hot loop. The plain version's
+//   clamp passes a NaN and its argmin returns the first NaN, masked
+//   columns included; the strict-less sweep never takes a NaN. A NaN or
+//   an infinite sum can only come from a source or destination point with
+//   |p|^2 >= 2^63 (a NaN or infinite coordinate, or one near the float
+//   range): below that every distance is finite, and a masked column's is
+//   +inf. The pre-pass flags each pair holding such a destination point,
+//   masked or not; a source row is flagged by its own |a|^2. A flagged row
+//   is settled after the sweep by the plain version's own rule over all
+//   columns (in the chunk-0 block, whose answer the merge then takes as
+//   it is). Finite data never flags a row.
 
 #include <cuda_runtime.h>
 
@@ -58,6 +69,7 @@ constexpr int kGroup = 8;         // columns per unrolled step
 constexpr int kRows = 4;          // source points a sweep thread holds
 constexpr int kMaxThreads = 128;  // threads of a sweep block
 constexpr int kTableThreads = 1024;  // one table block a pair
+constexpr float kSafe = 9.223372036854775808e18f;  // 2^63: see above
 
 __device__ __forceinline__ float sq_norm(float x, float y, float z) {
   return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
@@ -90,23 +102,27 @@ __device__ __forceinline__ void stage(float4* dst, const float4* src, int n) {
   for (int x = threadIdx.x; x < n; x += blockDim.x) cp_async16(dst + x, src + x);
 }
 
-// grid (batch): one block a pair writes its column table and the pair's
-// column count, 1 + the last valid column (0 for none)
+// grid (batch): one block a pair writes its column table, the pair's
+// column count, 1 + the last valid column (0 for none), into cols[b], and
+// into cols[batch + b] whether a destination point has |q|^2 >= 2^63
 __global__ void nn_table_kernel(const float* __restrict__ dst,
                                 const unsigned char* __restrict__ mask, int n2,
                                 int n2p, float4* __restrict__ table,
                                 int* __restrict__ cols) {
   __shared__ int warp_last[kTableThreads / 32];
+  __shared__ int warp_flag[kTableThreads / 32];
   const int b = blockIdx.x;
-  int last = 0;
+  int last = 0, flag = 0;
   for (int j = threadIdx.x; j < n2p; j += kTableThreads) {
     float4 row = make_float4(0.f, 0.f, 0.f, CUDART_INF_F);
     if (j < n2) {
       const float* q = dst + ((size_t)b * n2 + j) * 3;
       const float x = q[0], y = q[1], z = q[2];
       row = make_float4(-2.f * x, -2.f * y, -2.f * z, CUDART_INF_F);
+      const float sq = sq_norm(x, y, z);
+      flag |= !(sq < kSafe);  // NaN too
       if (mask[(size_t)b * n2 + j]) {
-        row.w = sq_norm(x, y, z);
+        row.w = sq;
         last = j + 1;
       }
     }
@@ -115,12 +131,20 @@ __global__ void nn_table_kernel(const float* __restrict__ dst,
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     last = max(last, __shfl_xor_sync(0xffffffffu, last, o));
+    flag |= __shfl_xor_sync(0xffffffffu, flag, o);
   }
-  if (threadIdx.x % 32 == 0) warp_last[threadIdx.x / 32] = last;
+  if (threadIdx.x % 32 == 0) {
+    warp_last[threadIdx.x / 32] = last;
+    warp_flag[threadIdx.x / 32] = flag;
+  }
   __syncthreads();
   if (threadIdx.x == 0) {
-    for (int w = 1; w < kTableThreads / 32; ++w) last = max(last, warp_last[w]);
+    for (int w = 1; w < kTableThreads / 32; ++w) {
+      last = max(last, warp_last[w]);
+      flag |= warp_flag[w];
+    }
     cols[b] = last;
+    cols[gridDim.x + b] = flag;
   }
 }
 
@@ -131,11 +155,40 @@ int table_launch(const float* dst, const unsigned char* mask, int batch,
   return (int)cudaGetLastError();
 }
 
+// A source row is settled by the exact rule when it or its pair is flagged
+__device__ __forceinline__ bool flagged(const int* cols, int batch, int b,
+                                        float sa) {
+  return cols[batch + b] != 0 || !(sa < kSafe);
+}
+
+// The plain version's answer for one source row over the columns [0, n2)
+// of its pair: d2 = clamp(dist, 0) with a NaN passed through, then the
+// first NaN or else the first minimum (torch.argmin)
+__device__ void exact_row(const float4* tb, int n2, float a0, float a1,
+                          float a2, float sa, float& best, int& bi) {
+  best = CUDART_INF_F;
+  bi = 0;
+  for (int j = 0; j < n2; ++j) {
+    const float d = dist(a0, a1, a2, sa, tb[j]);
+    if (d != d) {
+      best = d;
+      bi = j;
+      return;
+    }
+    const float c = fmaxf(d, 0.f);
+    if (c < best) {
+      best = c;
+      bi = j;
+    }
+  }
+}
+
 // grid (row strips, column chunks, batch); thread x of strip s holds rows
 // s * kRows * blockDim.x + x + r * blockDim.x, r < kRows
 __global__ void __launch_bounds__(kMaxThreads)
 nn_sweep_kernel(const float4* __restrict__ table, const int* __restrict__ cols,
-                const float* __restrict__ src, int n1, int n2p, int chunk,
+                const float* __restrict__ src, int batch, int n1, int n2,
+                int n2p, int chunk,
                 float* __restrict__ part_d2, int* __restrict__ part_idx,
                 long long* __restrict__ out_idx, float* __restrict__ out_d2) {
   __shared__ __align__(16) float4 tile[2][kTile];
@@ -143,8 +196,9 @@ nn_sweep_kernel(const float4* __restrict__ table, const int* __restrict__ cols,
   const int split = blockIdx.y, splits = gridDim.y;
   const int c0 = split * chunk;
   const int c1 = min(c0 + chunk, (cols[b] + kGroup - 1) / kGroup * kGroup);
-  // the merge reads only the chunks that start below the column count
-  if (splits > 1 && c0 >= c1) return;
+  // the merge reads only the chunks that start below the column count,
+  // and chunk 0 for a flagged row
+  if (splits > 1 && c0 >= c1 && split > 0) return;
 
   const int row0 = blockIdx.x * kRows * blockDim.x + threadIdx.x;
   float a0[kRows], a1[kRows], a2[kRows], sa[kRows], best[kRows];
@@ -194,7 +248,10 @@ nn_sweep_kernel(const float4* __restrict__ table, const int* __restrict__ cols,
 
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
-    if (best[r] <= 0.f) {  // the clamped minimum is 0: its first column
+    if (flagged(cols, batch, b, sa[r])) {  // only chunk 0's answer is read
+      if (split == 0) exact_row(tb, n2, a0[r], a1[r], a2[r], sa[r], best[r],
+                                bi[r]);
+    } else if (best[r] <= 0.f) {  // the clamped minimum is 0: its first column
       for (int j = c0; j < c1; ++j) {
         if (dist(a0[r], a1[r], a2[r], sa[r], tb[j]) <= 0.f) {
           bi[r] = j;
@@ -221,15 +278,24 @@ nn_sweep_kernel(const float4* __restrict__ table, const int* __restrict__ cols,
 }
 
 // grid (row blocks, batch): the chunks' answers in ascending column order,
-// strict-less, as one sweep would take them
+// strict-less, as one sweep would take them; chunk 0's for a flagged row
 __global__ void nn_merge_kernel(const float* __restrict__ part_d2,
                                 const int* __restrict__ part_idx,
-                                const int* __restrict__ cols, int n1, int chunk,
-                                int splits, long long* __restrict__ out_idx,
+                                const int* __restrict__ cols,
+                                const float* __restrict__ src, int batch,
+                                int n1, int chunk, int splits,
+                                long long* __restrict__ out_idx,
                                 float* __restrict__ out_d2) {
   const int b = blockIdx.y;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n1) return;
+  const float* a = src + ((size_t)b * n1 + i) * 3;
+  if (flagged(cols, batch, b, sq_norm(a[0], a[1], a[2]))) {
+    const size_t o = (size_t)b * splits * n1 + i;
+    out_idx[(size_t)b * n1 + i] = part_idx[o];
+    out_d2[(size_t)b * n1 + i] = part_d2[o];
+    return;
+  }
   const int used = (cols[b] + chunk - 1) / chunk;
   float best = CUDART_INF_F;
   int bi = 0;
@@ -254,8 +320,9 @@ bool shapes_ok(int batch, int n2, int n2p) {
 
 // dst: (batch, n2, 3) f32, mask: (batch, n2) bytes (non-zero = valid);
 // table: (batch, n2p, 4) f32 with n2p = n2 rounded up to a multiple of 8;
-// cols: (batch,) int32. All on the device. Writes the column table and the
-// per-pair column counts; returns the CUDA error code of the launches.
+// cols: (2, batch) int32. All on the device. Writes the column table, the
+// per-pair column counts (cols[0]) and flags (cols[1]: a destination point
+// with |q|^2 >= 2^63 or not finite); returns the CUDA error code.
 extern "C" int nn_table_launch(const float* dst, const unsigned char* mask,
                                int batch, int n2, int n2p, void* table,
                                int* cols, void* stream) {
@@ -292,10 +359,12 @@ extern "C" int nn_argmin_launch(const float* src, const float* dst,
   threads = min(kMaxThreads, (threads + 31) / 32 * 32);
   const int strips = (n1 + kRows * threads - 1) / (kRows * threads);
   nn_sweep_kernel<<<dim3(strips, splits, batch), threads, 0, s>>>(
-      t, cols, src, n1, n2p, chunk, part_d2, part_idx, out_idx, out_d2);
+      t, cols, src, batch, n1, n2, n2p, chunk, part_d2, part_idx, out_idx,
+      out_d2);
   err = (int)cudaGetLastError();
   if (err != 0 || splits == 1) return err;
   nn_merge_kernel<<<dim3((n1 + 255) / 256, batch), 256, 0, s>>>(
-      part_d2, part_idx, cols, n1, chunk, splits, out_idx, out_d2);
+      part_d2, part_idx, cols, src, batch, n1, chunk, splits, out_idx,
+      out_d2);
   return (int)cudaGetLastError();
 }

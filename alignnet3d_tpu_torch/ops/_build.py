@@ -49,20 +49,17 @@ _SIGNATURES = {
     "knn_points_launch": (_P, _I, _I, _I, _P, _P),
     "edge_stage_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
     "edge_train_stats1_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
-    "edge_train_stats2_launch": (
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
-    ),
-    "edge_train_apply_launch": (
+    "edge_train_fwd_launch": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
     ),
+    "edge_train_select_launch": (_P, _I, _I, _I, _P, _P, _P),
     "edge_train_bwd2_launch": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
     "edge_train_bwd_mid_launch": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _P, _P,
+        _I, _I, _I, _I, _I, _I, _P, _P, _P,
     ),
     "edge_train_bwd_in_launch": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
     ),
     "edge_train_reduce_launch": (_P, _I, _I, _P, _P),
 }

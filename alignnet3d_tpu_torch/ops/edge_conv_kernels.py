@@ -22,6 +22,8 @@ from __future__ import annotations
 
 import torch
 
+from alignnet3d_tpu_torch.ops._batch import batch_chunks
+
 # kernel tiling, as in csrc/edge_stage.cu: points staged at once, and the
 # padding rows of the edge tile
 _GROUP, _EDGES = 4, 10
@@ -87,8 +89,6 @@ def _check(points, nn_idx, w1, b1, w2, b2):
         raise ValueError("fused_edge_stage: weight/bias shapes do not chain")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fused_edge_stage: inputs must be contiguous")
-    if not 1 <= b <= 65535:
-        raise ValueError(f"fused_edge_stage: unsupported batch {b}")
     if _smem_bytes(k, w2.shape[0], w2.shape[1]) > _MAX_SMEM:
         raise ValueError("fused_edge_stage: W2 and the edge tile exceed a "
                          "block's shared memory")
@@ -116,14 +116,15 @@ def fused_edge_stage(points: torch.Tensor, nn_idx: torch.Tensor,
     out = torch.empty((b, n, c2), dtype=torch.float32, device=points.device)
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream(points.device).cuda_stream
-        rc = lib.edge_stage_launch(
-            u.data_ptr(), v.data_ptr(), nn_idx.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), b, n, nn_idx.shape[-1], c1, c2, out.data_ptr(),
-            stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"fused_edge_stage: kernel launch failed, CUDA error {rc}")
+        for s, e in batch_chunks(b):
+            rc = lib.edge_stage_launch(
+                u[s:e].data_ptr(), v[s:e].data_ptr(), nn_idx[s:e].data_ptr(),
+                w2.data_ptr(), b2.data_ptr(), e - s, n, nn_idx.shape[-1], c1,
+                c2, out[s:e].data_ptr(), stream,
+            )
+            if rc != 0:
+                raise RuntimeError(
+                    f"fused_edge_stage: kernel launch failed, CUDA error {rc}")
     fused_edge_stage.launches += 1
     return out
 

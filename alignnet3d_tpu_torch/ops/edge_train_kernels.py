@@ -14,16 +14,23 @@ the statistics carry no gradient (the caller's EMA update reads them).
 The max over k gives its whole cotangent to the FIRST t attaining it.
 
 For a CUDA tensor, ``fused_edge_stage_train`` runs the passes of
-``csrc/edge_train.cu`` inside one ``torch.autograd.Function``: U, V and the
-chain back through them (df, dW1, db1), and the step from the BN sums to
-(mu, var) and to the BN gradients, stay in ``torch.matmul``/``einsum`` and
-a few (C,)-vector operations, as the JAX wrapper leaves them to XLA.
-``fused_edge_stage_train_plain`` is the unfused graph in plain PyTorch,
-differentiated by autograd; it serves CPU tensors and is the kernel's
-reference on the card. Everything runs in float32.
+``csrc/edge_train.cu`` inside one ``torch.autograd.Function``, 10 launches
+a call (stats1, fwd and select with two reduces forward; bwd2, bwd_mid and
+bwd_in with two reduces backward), of which four product passes (fwd, and
+pre2/dh1/dW2 in bwd_mid). U, V and the chain back through them (df, dW1,
+db1), and the step from the BN sums to (mu, var) and to the BN gradients,
+stay in ``torch.matmul``/``einsum`` and a few (C,)-vector operations, as
+the JAX wrapper leaves them to XLA. ``fused_edge_stage_train_plain`` is the
+unfused graph in plain PyTorch, differentiated by autograd; it serves CPU
+tensors and is the kernel's reference on the card. ``select_plain`` is the
+plain version of the kernel's pick of the max over k (fwd, select). Any
+batch runs in one launch a pass. Everything runs in float32, and a NaN
+propagates as in the twin.
 
 dV is scattered with atomics, so on the card df and dW1 may differ between
-two runs at rounding level; every other output is bit-reproducible.
+two runs at rounding level; every other output is bit-reproducible. The
+backward keeps dy1 = dL/dy1 of every edge, (B N k, C1) float32, from
+bwd_mid to bwd_in: 671 MB at 256 clouds x 512 points, k=20, C1=64.
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ EPS = 1e-3
 _GROUP, _EDGES, _LANES = 4, 10, 64
 _TILE_A, _TILE_B = 4, 8
 _MAX_SMEM = 232448  # bytes a block may use on sm_90
-_PPB_FWD, _PPB_MID, _PPB_IN = 32, 128, 32  # points per block of a pass
+_PPB_FWD, _PPB_MID = 32, 128  # points per block of the product passes
 _ROWS_STATS1, _ROWS_BWD2 = 512, 128  # edge / point rows per block
 
 
@@ -68,6 +75,21 @@ def fused_edge_stage_train_plain(f, idx, w1, b1, g1, be1, w2, b2, g2, be2,
     y2, mu2, var2 = _batch_norm_train(pre2, g2, be2, eps)
     out = stable_max(torch.relu(y2), 2)
     return out, tuple(s.detach() for s in (mu1, var1, mu2, var2))
+
+
+def select_plain(pre2, g2, be2, mu2, var2, eps: float = EPS):
+    """The kernel's pick of the max over k, in plain PyTorch. relu(BN2(.))
+    is monotone in pre2 per channel (r2 > 0), so the first t attaining the
+    max of h2 is the first argmax of pre2 where g2 > 0, the first argmin
+    where g2 < 0 and t = 0 where g2 == 0. A NaN or an infinity in pre2 makes
+    its channel's var2 NaN, so out is NaN there whatever the pick.
+    pre2 (B, N, k, C2). Returns (out, slot, xhat2),
+    each (B, N, C2): relu(g2 xhat2 + be2) at the pick, its t (int64) and
+    xhat2 = (pre2 - mu2) rsqrt(var2 + eps) there."""
+    slot = torch.argmax(pre2 * torch.sign(g2), dim=2, keepdim=True)
+    xhat2 = (torch.gather(pre2, 2, slot).squeeze(2) - mu2) * torch.rsqrt(
+        var2 + eps)
+    return torch.relu(xhat2 * g2 + be2), slot.squeeze(2), xhat2
 
 
 def _padded(c: int, m: int) -> int:
@@ -105,8 +127,6 @@ def _check(f, idx, w1, b1, g1, be1, w2, b2, g2, be2):
             or any(tuple(t.shape) != (c1,) for t in (b1, g1, be1))
             or any(tuple(t.shape) != (c2,) for t in (b2, g2, be2))):
         raise ValueError("fused_edge_stage_train: weight shapes do not chain")
-    if not 1 <= b <= 65535:
-        raise ValueError(f"fused_edge_stage_train: unsupported batch {b}")
     if (_padded(c1, 4) // _TILE_A) * (_padded(c2, _TILE_B) // _TILE_B) \
             > _GROUP * _LANES:
         raise ValueError("fused_edge_stage_train: C1 x C2 exceeds the dW2 "
@@ -169,14 +189,15 @@ class _FusedEdgeStageTrain(torch.autograd.Function):
         s1 = _sums("stats1", -(-count // _ROWS_STATS1), 2 * c1,
                    u, v, idx, b, n, k, c1, _ROWS_STATS1)
         mu1, var1, bn1 = _bn_table(s1[:c1], s1[c1:], count, g1, be1, eps)
-        s2 = _sums("stats2", b * -(-n // _PPB_FWD), 2 * c2,
-                   u, v, idx, bn1, w2, b2, b, n, k, c1, c2, _PPB_FWD)
-        mu2, var2, bn2 = _bn_table(s2[:c2], s2[c2:], count, g2, be2, eps)
-        out = torch.empty((b, n, c2), dtype=torch.float32, device=f.device)
+        # the pick's t and pre2 (xs), then out and xhat2 at the pick
         slot = torch.empty((b, n, c2), dtype=torch.int32, device=f.device)
-        xs = torch.empty_like(out)
-        _launch("apply", u, v, idx, bn1.contiguous(), w2, b2, bn2.contiguous(),
-                b, n, k, c1, c2, _PPB_FWD, out, slot, xs)
+        xs = torch.empty((b, n, c2), dtype=torch.float32, device=f.device)
+        s2 = _sums("fwd", b * -(-n // _PPB_FWD), 2 * c2,
+                   u, v, idx, bn1, w2, b2, g2.contiguous(), b, n, k, c1, c2,
+                   _PPB_FWD, slot, xs)
+        mu2, var2, bn2 = _bn_table(s2[:c2], s2[c2:], count, g2, be2, eps)
+        out = torch.empty_like(xs)
+        _launch("select", bn2, b, n, c2, xs, out)
         ctx.save_for_backward(f, idx, w1, w2, b2, u, v, bn1, bn2, out, slot,
                               xs)
         ctx.mark_non_differentiable(mu1, var1, mu2, var2)
@@ -194,18 +215,19 @@ class _FusedEdgeStageTrain(torch.autograd.Function):
         sa2, sb2 = s[:c2], s[c2:]
         m2 = torch.stack([sa2, sb2]) / count
         cols = c1 * c2 + c2 + 2 * c1
+        dy1 = torch.empty((count, c1), dtype=torch.float32, device=f.device)
         s = _sums("bwd_mid", b * -(-n // _PPB_MID), cols,
                   u, v, idx, bn1, w2, b2, bn2, slot, dout, out, m2,
-                  b, n, k, c1, c2, _PPB_MID)
+                  b, n, k, c1, c2, _PPB_MID, dy1)
         dw2 = s[:c1 * c2].reshape(c1, c2)
         db2 = s[c1 * c2:c1 * c2 + c2]
         sa1, sb1 = s[c1 * c2 + c2:c1 * c2 + c2 + c1], s[c1 * c2 + c2 + c1:]
         m1 = torch.stack([sa1, sb1]) / count
         du = torch.empty_like(u)
         dv = torch.zeros_like(v)
-        _launch("bwd_in", u, v, idx, bn1, w2, b2, bn2, slot, dout, out,
-                m2.contiguous(), m1.contiguous(), b, n, k, c1, c2, _PPB_IN,
+        _launch("bwd_in", u, v, idx, bn1, m1.contiguous(), dy1, b, n, k, c1,
                 du, dv)
+        del dy1  # back to the allocator before the chain below
         # chain through U = f (P - Q) + b1 and V = f Q
         a_w, q_w = w1[:c] - w1[c:], w1[c:]
         df = torch.matmul(du, a_w.T) + torch.matmul(dv, q_w.T)

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from alignnet3d_tpu_torch.ops._batch import batch_chunks
 from alignnet3d_tpu_torch.ops.nn_kernels import _sq_norm
 
 MAX_K = 64  # the kernel keeps the k best of each row in registers
@@ -59,7 +60,7 @@ def _check(points, k):
     if not points.is_contiguous():
         raise ValueError("knn_points: points must be contiguous")
     b, n, _ = points.shape
-    if not 1 <= b <= 65535 or n < 1:
+    if b < 1 or n < 1:
         raise ValueError(f"knn_points: unsupported shape {tuple(points.shape)}")
     if not 1 <= k <= min(n, MAX_K):
         raise ValueError(f"knn_points: k={k} must be in [1, min(N={n}, "
@@ -83,10 +84,12 @@ def knn_points(points: torch.Tensor, k: int) -> torch.Tensor:
     out = torch.empty((b, n, k), dtype=torch.int64, device=points.device)
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream(points.device).cuda_stream
-        rc = lib.knn_points_launch(points.data_ptr(), b, n, k,
-                                   out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"knn_points: kernel launch failed, CUDA error {rc}")
+        for s, e in batch_chunks(b):
+            rc = lib.knn_points_launch(points[s:e].data_ptr(), e - s, n, k,
+                                       out[s:e].data_ptr(), stream)
+            if rc != 0:
+                raise RuntimeError(
+                    f"knn_points: kernel launch failed, CUDA error {rc}")
     knn_points.launches += 1
     return out
 

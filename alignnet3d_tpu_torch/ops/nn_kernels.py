@@ -7,17 +7,23 @@ point, with
 
     d2 = max((|a|^2 - 2 a.q) + |q|^2, 0),  +inf where q is masked,
 
-and the lowest index on ties. The batch axis is native (the JAX callers
-vmap over it). The CUDA kernel (``csrc/nn_argmin.cu``) and
-``nn_argmin_plain`` evaluate every product and sum in the same order with
-separate roundings, so on the card they agree bit for bit. The kernel's
-pre-pass builds a column table whose plain version is
-``column_table_plain``.
+and the lowest index on ties; a NaN distance (from a NaN or infinite
+coordinate, masked columns included) wins, as ``torch.argmin`` takes the
+first NaN. On non-finite input the reference is the XLA path, whose
+``jnp.argmin`` does the same, not the Pallas kernel: its strict-less
+minimum over column tiles never takes a NaN distance. The batch axis is
+native (the JAX callers vmap over it). The
+CUDA kernel (``csrc/nn_argmin.cu``) and ``nn_argmin_plain`` evaluate every
+product and sum in the same order with separate roundings, so on the card
+they agree bit for bit, non-finite inputs included. The kernel's pre-pass
+builds a column table whose plain version is ``column_table_plain``.
 """
 
 from __future__ import annotations
 
 import torch
+
+from alignnet3d_tpu_torch.ops._batch import batch_chunks
 
 GROUP = 8     # the kernel's column group (csrc/nn_argmin.cu: kGroup)
 # columns a sweep block visits at most; their answers are merged. Fastest of
@@ -80,7 +86,7 @@ def _check(src, dst, dst_mask):
     b, n1, _ = src.shape
     if dst.shape[0] != b or tuple(dst_mask.shape) != tuple(dst.shape[:2]):
         raise ValueError("nn_argmin: batch or mask shape mismatch")
-    if not 1 <= b <= 65535 or n1 < 1 or dst.shape[1] < 1:
+    if b < 1 or n1 < 1 or dst.shape[1] < 1:
         raise ValueError(f"nn_argmin: unsupported shapes {tuple(src.shape)}, "
                          f"{tuple(dst.shape)}")
     if not (src.is_contiguous() and dst.is_contiguous()
@@ -123,11 +129,19 @@ def column_table(dst: torch.Tensor, dst_mask: torch.Tensor):
     table = torch.empty((b, n2p, 4), dtype=torch.float32, device=dst.device)
     cols = torch.empty((b,), dtype=torch.int32, device=dst.device)
     with torch.cuda.device(dst.device):
-        rc = lib.nn_table_launch(
-            dst.data_ptr(), dst_mask.data_ptr(), b, n2, n2p, table.data_ptr(),
-            cols.data_ptr(), torch.cuda.current_stream(dst.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"nn_argmin: table launch failed, CUDA error {rc}")
+        for s, e in batch_chunks(b):
+            # the kernel also writes each pair's non-finite flag after the
+            # counts
+            counts = torch.empty((2, e - s), dtype=torch.int32,
+                                 device=dst.device)
+            rc = lib.nn_table_launch(
+                dst[s:e].data_ptr(), dst_mask[s:e].data_ptr(), e - s, n2, n2p,
+                table[s:e].data_ptr(), counts.data_ptr(),
+                torch.cuda.current_stream(dst.device).cuda_stream)
+            if rc != 0:
+                raise RuntimeError(
+                    f"nn_argmin: table launch failed, CUDA error {rc}")
+            cols[s:e] = counts[0]
     return table, cols
 
 
@@ -147,25 +161,30 @@ def launch(src, dst, dst_mask, chunk: int):
     n2 = dst.shape[1]
     n2p = -(-n2 // GROUP) * GROUP
     splits = -(-n2p // chunk)
-    # one scratch buffer, in 4-byte words: the column table (16-byte rows
-    # first, so aligned), the column counts, and the chunks' answers
-    n_table, n_cols = b * n2p * 4, -(-b // 4) * 4
-    n_part = b * splits * n1 if splits > 1 else 0
-    scratch = torch.empty(n_table + n_cols + 2 * n_part, dtype=torch.float32,
-                          device=src.device)
-    table = scratch.data_ptr()
-    cols = table + 4 * n_table
-    part_d2 = cols + 4 * n_cols if n_part else None
-    part_idx = part_d2 + 4 * n_part if n_part else None
     idx = torch.empty((b, n1), dtype=torch.int64, device=src.device)
     d2 = torch.empty((b, n1), dtype=torch.float32, device=src.device)
     with torch.cuda.device(src.device):
-        rc = lib.nn_argmin_launch(
-            src.data_ptr(), dst.data_ptr(), dst_mask.data_ptr(), b, n1, n2,
-            n2p, chunk, table, cols, part_d2, part_idx, idx.data_ptr(),
-            d2.data_ptr(), torch.cuda.current_stream(src.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"nn_argmin: kernel launch failed, CUDA error {rc}")
+        for s, e in batch_chunks(b):
+            m = e - s
+            # one scratch buffer, in 4-byte words: the column table (16-byte
+            # rows first, so aligned), the column counts and non-finite
+            # flags, and the chunks' answers
+            n_table, n_cols = m * n2p * 4, -(-2 * m // 4) * 4
+            n_part = m * splits * n1 if splits > 1 else 0
+            scratch = torch.empty(n_table + n_cols + 2 * n_part,
+                                  dtype=torch.float32, device=src.device)
+            table = scratch.data_ptr()
+            cols = table + 4 * n_table
+            part_d2 = cols + 4 * n_cols if n_part else None
+            part_idx = part_d2 + 4 * n_part if n_part else None
+            rc = lib.nn_argmin_launch(
+                src[s:e].data_ptr(), dst[s:e].data_ptr(),
+                dst_mask[s:e].data_ptr(), m, n1, n2, n2p, chunk, table, cols,
+                part_d2, part_idx, idx[s:e].data_ptr(), d2[s:e].data_ptr(),
+                torch.cuda.current_stream(src.device).cuda_stream)
+            if rc != 0:
+                raise RuntimeError(
+                    f"nn_argmin: kernel launch failed, CUDA error {rc}")
     return idx, d2
 
 

@@ -6,6 +6,8 @@ every BatchNorm folds into its dense layer, so a PointNet backbone is
 (``csrc/fused_pointnet.cu``) runs the whole chain with the activations in
 shared memory; ``fused_pointnet_plain`` is the same function in plain
 PyTorch, used for CPU tensors and as the kernel's reference on the card.
+Both propagate a NaN through the relus and the max, as the JAX package's
+``jnp.maximum``/``jnp.max`` do.
 
 ``compute_dtype=torch.bfloat16`` follows the JAX package's bf16 serving
 semantics: the operands are rounded to bf16, the products accumulate in
@@ -19,6 +21,8 @@ import ctypes
 from typing import Sequence
 
 import torch
+
+from alignnet3d_tpu_torch.ops._batch import batch_chunks
 
 MAX_LAYERS = 4
 MAX_HIDDEN = 256  # widest input of any layer the kernel takes
@@ -54,7 +58,7 @@ def _check(points, weights, biases, compute_dtype):
     if not points.is_contiguous():
         raise ValueError("fused_pointnet: points must be contiguous")
     b, n, c = points.shape
-    if b < 1 or n < 1 or b > 65535:
+    if b < 1 or n < 1:
         raise ValueError(f"fused_pointnet: unsupported shape {tuple(points.shape)}")
     if not 1 <= len(weights) <= MAX_LAYERS or len(weights) != len(biases):
         raise ValueError(f"fused_pointnet: 1..{MAX_LAYERS} layers, one bias each")
@@ -93,17 +97,20 @@ def fused_pointnet(points: torch.Tensor, weights: Sequence[torch.Tensor],
     out = torch.empty((points.shape[0], dims[-1]), dtype=torch.float32,
                       device=points.device)
     n_layers = len(ws)
+    c_dims = (ctypes.c_int * (n_layers + 1))(*dims)
+    c_ws = (ctypes.c_void_p * n_layers)(*[w.data_ptr() for w in ws])
+    c_bs = (ctypes.c_void_p * n_layers)(*[b.data_ptr() for b in biases])
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream(points.device).cuda_stream
-        rc = lib.fused_pointnet_launch(
-            points.data_ptr(), points.shape[0], points.shape[1], n_layers,
-            (ctypes.c_int * (n_layers + 1))(*dims),
-            (ctypes.c_void_p * n_layers)(*[w.data_ptr() for w in ws]),
-            (ctypes.c_void_p * n_layers)(*[b.data_ptr() for b in biases]),
-            int(compute_dtype == torch.bfloat16), out.data_ptr(), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"fused_pointnet: kernel launch failed, CUDA error {rc}")
+        for s, e in batch_chunks(points.shape[0]):
+            rc = lib.fused_pointnet_launch(
+                points[s:e].data_ptr(), e - s, points.shape[1], n_layers,
+                c_dims, c_ws, c_bs, int(compute_dtype == torch.bfloat16),
+                out[s:e].data_ptr(), stream,
+            )
+            if rc != 0:
+                raise RuntimeError(
+                    f"fused_pointnet: kernel launch failed, CUDA error {rc}")
     fused_pointnet.launches += 1
     return out
 

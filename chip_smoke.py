@@ -17,9 +17,12 @@ From the root of a checkout, with nothing built beforehand:
 6. sends the same requests through the port on the CPU, where it runs the
    twins, and compares the answers;
 7. generates a synthetic dataset (3 x 128 training and 128 validation
-   pairs) and holds the fused training edge stage against its twin at the
-   training shape, forward and backward, and its gradients against
-   float64 on the branch (relu masks, max slots) it took;
+   pairs); feeds a NaN (and an infinite) point to kernels 1, 2 and 5 and
+   holds their answers to the twins', and checks that a fused DGCNN
+   training step on a batch with a NaN point gives a non-finite loss (the
+   ``Trainer``'s guard); holds the fused training edge stage against its
+   twin at the training shape, forward and backward, and its gradients
+   against float64 on the branch (relu masks, max slots) it took;
 8. trains one epoch (3 steps + the dual eval) of the DGCNN of
    ``configs/SynthCars40kDGCNNFusedR4.json`` with ``dgcnn_fused_train`` on,
    through ``Trainer.train()``, counting launches, and compares its first
@@ -707,9 +710,22 @@ def fused_edge_stage_train_phase(basepath: str):
               + ", ".join(f"{k_}={v:.2e}" for k_, v in e.items()))
     print(f"fused_edge_stage_train two backward runs: max abs difference "
           f"{repeat:.3e}")
+    # The function's least work: three product passes of 2 E C1 C2 FLOPs on
+    # the FP32 pipes, pre2 forward and dh1 = dpre2 W2^T, dW2 = h1^T dpre2
+    # backward. The kernel runs a fourth, pre2 rebuilt in bwd_mid, so that
+    # no (B N k, C2) tensor is stored: a design choice, not the function's
+    # work (storing pre2 would move ~2.7 GB, ~0.8 ms, under the 3 passes).
+    # Bytes: f, idx, weights and dout in, out, df and the weight gradients
+    # out
+    edges = x.shape[0] * n * k
+    flops = 3 * 2.0 * edges * c1 * c2
+    nbytes = (4 * (2 * x.numel() + 2 * dout.numel()) + idx.numel() * 8
+              + 8 * sum(p.numel() for p in params))
+    bound_ms, bound_by = bound(flops, FP32_FLOPS, nbytes)
     print(f"fused_edge_stage_train kernel forward {fwd_ms:.4f} ms, forward+"
-          f"backward {ms:.4f} ms; twin forward+backward {plain_ms:.4f} ms "
-          f"(CUDA events); peak device memory above the inputs: kernel "
+          f"backward {ms:.4f} ms (bound {bound_ms:.4f} ms, {bound_by}); twin "
+          f"forward+backward {plain_ms:.4f} ms (CUDA events); peak device "
+          f"memory of a forward+backward call above its inputs: kernel "
           f"{mem_kernel / 2**20:.1f} MiB, twin {mem_plain / 2**20:.1f} MiB")
     check(ok, "fused_edge_stage_train disagrees with its twin (forward)")
     check(tie <= TIE_ABS, "fused_edge_stage_train takes a branch that "
@@ -717,16 +733,102 @@ def fused_edge_stage_train_phase(basepath: str):
     check(max(errs_kb.values()) <= TRAIN_TOL,
           "fused_edge_stage_train gradients disagree with float64 on the "
           "kernel's own branch")
-    # The function's least work: one forward product pass (relu(BN2(.)) is
-    # monotone in pre2 per channel, so the BN2 sums and the max and min of
-    # pre2 come from one pass) and three backward (pre2 again, dW2, dh1,
-    # with dh1 kept), each 2 E C1 C2 FLOPs on the FP32 pipes. Bytes: f,
-    # idx, weights and dout in, out, df and the weight gradients out
-    edges = x.shape[0] * n * k
-    flops = 4 * 2.0 * edges * c1 * c2
-    nbytes = (4 * (2 * x.numel() + 2 * dout.numel()) + idx.numel() * 8
-              + 8 * sum(p.numel() for p in params))
-    return (err, ms, plain_ms, *bound(flops, FP32_FLOPS, nbytes))
+    return (err, ms, plain_ms, bound_ms, bound_by)
+
+
+def _same_nan(got, ref, tol):
+    """NaN in the same places, the rest (infinities included) within tol."""
+    nan = torch.isnan(ref)
+    return bool(torch.equal(torch.isnan(got), nan)
+                and torch.allclose(got[~nan], ref[~nan], rtol=tol, atol=tol))
+
+
+def nan_phase(spec, state, clouds, pcs1, pcs2, basepath: str, workdir: str):
+    """Kernels 1, 2 and 5 against their twins on inputs with a NaN and an
+    infinite point: kernel 1 on the embedding chain at the serving batch,
+    kernel 2 at the flip shape (bit-equal), kernel 5 on 16 clouds of the
+    training shape's points; then one fused DGCNN training step on a batch
+    with a NaN point, whose loss must be non-finite, as the Trainer's
+    guard reads it."""
+    from alignnet3d_tpu_torch.ops import edge_train_kernels as et
+    from alignnet3d_tpu_torch.ops import knn_kernels as kk
+    from alignnet3d_tpu_torch.ops import nn_kernels as nk
+    from alignnet3d_tpu_torch.ops import pointnet_kernels as pk
+    from alignnet3d_tpu_torch.training.trainer import Trainer
+
+    x, chains = pointnet_inputs(spec, state, clouds)
+    _, ws, bs = chains["embedding"]
+    x[3, 7, 1] = float("nan")
+    x[5, 11, 0] = float("inf")
+    got = pk.fused_pointnet(x, ws, bs)
+    ref = pk.fused_pointnet_plain(x, ws, bs)
+    torch.cuda.synchronize()
+    ok1 = _same_nan(got, ref, 1e-4)
+    print(f"NaN phase, fused_pointnet embedding B={x.shape[0]}: NaN outputs "
+          f"kernel {int(got.isnan().sum())}, twin {int(ref.isnan().sum())}; "
+          f"the rest within 1e-4: {ok1}")
+    check(ok1 and bool(ref.isnan().any()),
+          "fused_pointnet: a NaN point's answer disagrees with the twin's")
+
+    src, dst, mask, _ = nn_inputs(spec, pcs1, pcs2)["flip"]
+    src, dst, mask = (torch.from_numpy(v.copy()).cuda()
+                      for v in (src, dst, mask))
+    src[2, 9, 0] = float("nan")
+    dst[4, 100, 2] = float("nan")
+    dst[6, 0, 1] = float("inf")
+    idx, d2 = nk.nn_argmin(src, dst, mask)
+    ri, rd = nk.nn_argmin_plain(src, dst, mask)
+    torch.cuda.synchronize()
+    ok2 = bool(torch.equal(idx, ri)) and _same_nan(d2, rd, 0.0)
+    print(f"NaN phase, nn_argmin flip shape: NaN distances kernel "
+          f"{int(d2.isnan().sum())}, twin {int(rd.isnan().sum())}; "
+          f"bit-equal: {ok2}")
+    check(ok2, "nn_argmin: non-finite points' answers differ from the twin's")
+
+    rng = np.random.default_rng(SEED + 8)
+    f = torch.from_numpy(rng.normal(size=(16, 512, 3)).astype(np.float32))
+    f = f.cuda()
+    idx = kk.knn_points(f, 20)
+    params = [torch.from_numpy(a.astype(np.float32)).cuda() for a in (
+        rng.normal(size=(6, 64)) * 0.4, rng.normal(size=64) * 0.1,
+        1 + 0.2 * rng.normal(size=64), 0.1 * rng.normal(size=64),
+        rng.normal(size=(64, 128)) / 8.0, rng.normal(size=128) * 0.1,
+        1 + 0.2 * rng.normal(size=128), 0.1 * rng.normal(size=128))]
+    for value in (float("nan"), float("inf")):
+        f[1, 9, 2] = value
+        with torch.no_grad():
+            out, stats = et.fused_edge_stage_train(f, idx, *params)
+            r_out, r_stats = et.fused_edge_stage_train_plain(f, idx, *params)
+        torch.cuda.synchronize()
+        ok5 = all(_same_nan(a, b, TRAIN_TOL)
+                  for a, b in zip((out, *stats), (r_out, *r_stats)))
+        share = [float(o.isnan().double().mean()) for o in (out, r_out)]
+        print(f"NaN phase, fused_edge_stage_train with f = {value} at one "
+              f"point: NaN share of out kernel {share[0]:.3f}, "
+              f"twin {share[1]:.3f}; of the "
+              f"statistics kernel {sum(int(s.isnan().sum()) for s in stats)}, "
+              f"twin {sum(int(s.isnan().sum()) for s in r_stats)}; NaN in "
+              f"the same places: {ok5}")
+        check(ok5 and bool(r_out.isnan().any()),
+              "fused_edge_stage_train: a non-finite point's answer differs "
+              "from the twin's")
+
+    cfg = train_config(TRAIN_CONFIG, basepath, os.path.join(workdir, "nan"),
+                       dgcnn_fused_train=True)
+    trainer = Trainer(cfg, seed=SEED, device="cuda")
+    trainer.init_state()
+    batch = trainer.dataset.sample_batch(trainer.train_indices[:PAIRS],
+                                         trainer.spec.num_points,
+                                         np.random.default_rng(SEED + 9))
+    pc1 = batch[0].copy()
+    pc1[3, 7, 1] = np.nan
+    loss = float(trainer.train_step((pc1, *batch[1:]))["losses/loss"])
+    print(f"NaN phase, fused DGCNN training step with a NaN point: loss "
+          f"{loss}")
+    check(not np.isfinite(loss), "a fused DGCNN step on a NaN point gave a "
+          "finite loss: the Trainer's guard would not fire")
+    del trainer
+    torch.cuda.empty_cache()
 
 
 def _first_step_grads(trainer, batch):
@@ -845,7 +947,9 @@ def dgcnn_training_phase(basepath: str, workdir: str):
           f"of {PAIRS}): {wall:.1f} s; kernel launches {counts}")
     _check_trained(logdir, "DGCNN fused")
     steps = trainer.step
-    # 10 launches of kernel 5 per backbone per step, 3 backbones a step;
+    # 10 launches of kernel 5 per backbone per step (stats1, fwd, select
+    # and two reduces forward; bwd2, bwd_mid, bwd_in and two reduces
+    # backward), 3 backbones a step;
     # knn_points: 3 a training step and 3 a forward of the eval batch
     check(counts["fused_edge_stage_train"] == 30 * steps,
           f"fused_edge_stage_train: {counts['fused_edge_stage_train']} "
@@ -1195,6 +1299,8 @@ def main() -> int:
         splits = make_dataset(basepath)
         print(f"dataset: {len(splits['train'])} train + {len(splits['val'])} "
               f"val pairs generated in {time.perf_counter() - t0:.1f} s")
+        nan_phase(spec, state, requests[0][0] + requests[0][1],
+                  *requests[2], basepath, workdir)
         k5 = fused_edge_stage_train_phase(basepath)
         counts = dgcnn_training_phase(basepath, workdir)
         launches["fused_edge_stage_train"] = counts["fused_edge_stage_train"]

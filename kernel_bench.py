@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Times the port's two serving-path kernels on one CUDA card, optionally
-against another checkout's build of them, in turns.
+"""Times the port's two serving-path kernels (and, with ``--train``, the
+fused training edge stage) on one CUDA card, optionally against another
+checkout's build of them, in turns.
 
     python3 kernel_bench.py [--other DIR] [--sweep] [--ptxas] [--requests N]
-                            [--out FILE]
+                            [--train] [--out FILE]
 
 From the root of a checkout. The inputs are ``chip_smoke.py``'s: the
 stacked PointNet serving batch (256 clouds x 512 points) with the three
@@ -20,10 +21,17 @@ and checked against its plain twin (``nn_argmin`` bit for bit).
 - ``--sweep``: also times ``nn_argmin``'s kernel under other column
   splits than its plan picks, and its pre-pass alone.
 - ``--ptxas``: prints the registers, spills and shared memory that
-  ``nvcc -Xptxas -v`` reports for the two kernels' sources.
+  ``nvcc -Xptxas -v`` reports for the timed kernels' sources.
 - ``--requests N``: also times N rounds of ``chip_smoke.py``'s three
   PointNet requests of 128 pairs (plain, flips, flips + ICP) through
   ``Aligner.align``, on the host clock.
+- ``--train``: also times ``fused_edge_stage_train`` at the training shape
+  (the 256 request clouds resampled to 512 points, k=20 over their
+  ``knn_points`` graph, C1=64, C2=128, seeded weights and cotangent):
+  forward, forward + backward, the peak device memory of a call, and a
+  ``torch.profiler`` breakdown of its device time by kernel; and the fused
+  DGCNN training step at batch 128 on ``chip_smoke.py``'s generated
+  dataset (host clock, peak memory), profiled the same way.
 
 Prints one JSON line per run and, last, a JSON summary (also written to
 ``--out``).
@@ -83,6 +91,17 @@ def make_inputs(path: str) -> None:
             arrays[f"req{r}{side}.pts"] = np.concatenate(pcs).astype(np.float32)
             arrays[f"req{r}{side}.len"] = np.array([len(p) for p in pcs])
     arrays.update({f"state/{k}": v.numpy() for k, v in state.items()})
+    # the training stage: 2 x PAIRS clouds of 512 points, seeded weights
+    rng = np.random.default_rng(cs.SEED + 5)
+    arrays["train.x"] = cs._resampled(clouds, 512, rng)
+    for i, shape in enumerate(((6, 64), 64, 64, 64, (64, 128), 128, 128,
+                               128)):
+        scale = (0.4 if i == 0 else 1 / 8 if i == 4 else 0.1)
+        centre = 1.0 if i in (2, 6) else 0.0
+        arrays[f"train.p{i}"] = (centre + scale * rng.normal(size=shape)
+                                 ).astype(np.float32)
+    arrays["train.dout"] = rng.normal(size=(len(clouds), 512, 128)).astype(
+        np.float32)
     np.savez(path, **arrays)
 
 
@@ -154,9 +173,101 @@ def device_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def run(root: str, inputs: str, sweep: bool, requests: int) -> dict:
+def time_train(t) -> dict:
+    """fused_edge_stage_train at the training shape: forward and forward +
+    backward (CUDA events), the call's peak device memory above its inputs,
+    and out against the twin."""
+    import torch
+
+    from alignnet3d_tpu_torch.ops import edge_train_kernels as et
+    from alignnet3d_tpu_torch.ops import knn_kernels as kk
+
+    x, dout = t["train.x"], t["train.dout"]
+    params = [t[f"train.p{i}"] for i in range(8)]
+    idx = kk.knn_points(x, 20)
+
+    def call():
+        xs = x.clone().requires_grad_()
+        ps = [p.clone().requires_grad_() for p in params]
+        out, _ = et.fused_edge_stage_train(xs, idx, *ps)
+        return torch.autograd.grad(out, [xs, *ps], dout)
+
+    with torch.no_grad():
+        out = et.fused_edge_stage_train(x, idx, *params)[0]
+        ref = et.fused_edge_stage_train_plain(x, idx, *params)[0]
+        fwd = cuda_ms(lambda: et.fused_edge_stage_train(x, idx, *params), 10)
+    err = float((out - ref).abs().max())
+    del ref
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    return {"fwd_ms": fwd, "fwd_bwd_ms": cuda_ms(call, 10),
+            "peak_bytes": peak, "out_max_abs_err": err,
+            "profile": device_breakdown(call, 5)}
+
+
+def device_breakdown(fn, reps: int) -> dict:
+    """torch.profiler (CUPTI) over ``reps`` calls of ``fn``, ending in a
+    synchronize: the host-clock ms a call (profiler overhead included), the
+    device's busy ms a call (every kernel, copy and fill summed; one
+    stream) and the 15 largest device ms a call by kernel name."""
+    import torch
+    from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            name = ev.name[:60]
+            by_name[name] = (by_name.get(name, 0.0)
+                             + ev.time_range.elapsed_us() / 1e3 / reps)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    return {"wall_ms": wall, "device_busy_ms": sum(by_name.values()),
+            "device_ms_by_kernel": dict(top)}
+
+
+def time_step(basepath: str) -> dict:
+    """One fused DGCNN training step at batch 128 (chip_smoke.py's config,
+    dataset and batch): host-clock ms a step over 5 steps after a warm-up
+    step, their peak device memory, and a profile of 3 steps."""
+    import torch
+
+    import chip_smoke as cs
+    from alignnet3d_tpu_torch.training.trainer import Trainer
+
+    logdir = tempfile.mkdtemp(dir=os.path.dirname(basepath))  # cleaned up
+    cfg = cs.train_config(cs.TRAIN_CONFIG, basepath, logdir,
+                          dgcnn_fused_train=True)
+    trainer = Trainer(cfg, seed=cs.SEED, device="cuda")
+    trainer.init_state()
+    batch = trainer.dataset.sample_batch(trainer.train_indices[:cs.PAIRS],
+                                         trainer.spec.num_points,
+                                         np.random.default_rng(cs.SEED + 6))
+    ms, peak = cs._step_ms(trainer, batch, steps=5)
+
+    def step():
+        trainer.train_step(batch)
+
+    return {"step_ms": ms, "peak_bytes": peak,
+            "profile": device_breakdown(step, 3)}
+
+
+def run(root: str, inputs: str, sweep: bool, requests: int,
+        train: bool = False) -> dict:
     """Time the kernels of the checkout at ``root`` (imported from there)
-    and, with ``requests`` > 0, that many rounds of the three requests."""
+    and, with ``requests`` > 0, that many rounds of the three requests.
+    With ``train``, the training step reads the dataset that ``main`` made
+    beside ``inputs``."""
     sys.path.insert(0, root)
     import torch
 
@@ -201,17 +312,21 @@ def run(root: str, inputs: str, sweep: bool, requests: int) -> dict:
                     "bit_equal": ok}
             out["sweep"][f"{name} column_table"] = {
                 "device_ms": device_ms(lambda: nk.column_table(dst, mask), 50)}
+    if train:
+        out["train"] = time_train(t)
+        out["step"] = time_step(os.path.join(os.path.dirname(inputs), "data"))
     if requests:
         out["requests_ms"] = time_requests(data, requests)
     return out
 
 
 def ptxas_report() -> None:
-    """nvcc -Xptxas -v of the two kernels' sources, compiled on their own."""
+    """nvcc -Xptxas -v of the timed kernels' sources, compiled on their
+    own."""
     from alignnet3d_tpu_torch.ops import _build
 
     with tempfile.TemporaryDirectory() as work:
-        for name in ("nn_argmin", "fused_pointnet"):
+        for name in ("nn_argmin", "fused_pointnet", "edge_train"):
             src = _build.CSRC_DIR / f"{name}.cu"
             proc = subprocess.run(
                 [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
@@ -233,13 +348,16 @@ def main() -> int:
     parser.add_argument("--requests", type=int, default=0, metavar="N",
                         help="also time N rounds of chip_smoke.py's three "
                         "PointNet requests (host clock)")
+    parser.add_argument("--train", action="store_true",
+                        help="also time fused_edge_stage_train and the "
+                        "fused DGCNN training step")
     parser.add_argument("--out", help="also write the summary here")
     parser.add_argument("--run", nargs=2, metavar=("ROOT", "INPUTS"),
                         help=argparse.SUPPRESS)  # one timed process
     args = parser.parse_args()
     if args.run:
         print(json.dumps(run(*args.run, sweep=args.sweep,
-                             requests=args.requests)))
+                             requests=args.requests, train=args.train)))
         return 0
 
     import torch
@@ -263,12 +381,18 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         inputs = os.path.join(work, "inputs.npz")
         make_inputs(inputs)
+        if args.train:
+            import chip_smoke as cs
+
+            cs.make_dataset(os.path.join(work, "data"))
         for i, root in enumerate(order):
             cmd = [sys.executable, str(Path(__file__).resolve()), "--run", root,
                    inputs]
             if args.sweep and root == this and i == 1:
                 cmd.append("--sweep")
             cmd += ["--requests", str(args.requests)]
+            if args.train:
+                cmd.append("--train")
             proc = subprocess.run(cmd, capture_output=True, text=True, cwd=root)
             if proc.returncode != 0:
                 print(proc.stdout + proc.stderr, file=sys.stderr)

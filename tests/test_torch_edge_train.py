@@ -64,6 +64,36 @@ def test_forward_values_and_stats_match_jax(n):
                                    atol=1e-6, err_msg=name)
 
 
+@pytest.mark.parametrize("value", [np.nan, np.inf])
+def test_non_finite_point_matches_jax(value):
+    """One non-finite coordinate in f: BN1's statistics span the batch, so
+    the JAX kernel's out is NaN everywhere (jnp.maximum relus) and the
+    twin's too (torch.relu), and so are var1, mu2 and var2. mu1 is NaN in
+    the same places, except where an infinite V row reaches it: the JAX
+    kernel gathers V by a one-hot product (0 * inf = NaN in every row of
+    the cloud), the twin by index, which leaves mu1 at +-inf there. The
+    CUDA kernel is held to the twin on such inputs in
+    tests/test_torch_gpu_kernels.py."""
+    f, idx, params = _problem()
+    f[1, 7, 2] = value
+    want, want_stats = jax_stage(jnp.asarray(f), jnp.asarray(idx),
+                                 **params, interpret=True)
+    tf, tidx, tp = _torch(f, idx, params)
+    got, stats = et.fused_edge_stage_train(tf, tidx, **tp)
+    for g, w, name in zip((got, *stats), (want, *want_stats),
+                          ("out", "mu1", "var1", "mu2", "var2")):
+        g, w = g.numpy(), np.asarray(w)
+        if name != "mu1":
+            assert np.isnan(g).all() and np.isnan(w).all(), name
+            continue
+        nan = np.isnan(w)
+        gather = nan & ~np.isnan(g)
+        assert not (np.isnan(g) & ~nan).any()
+        assert np.isinf(g[gather]).all() and (value == np.inf or
+                                              not gather.any())
+        np.testing.assert_allclose(g[~nan], w[~nan], rtol=1e-5, atol=1e-6)
+
+
 def test_stats_carry_no_gradient():
     f, idx, params = _problem()
     tf, tidx, tp = _torch(f, idx, params, grad=True)

@@ -7,6 +7,7 @@ This file imports no jax, so it also runs where only PyTorch is installed:
 
 The tests marked ``gpu`` skip on a machine without a Hopper card; the
 others check, on any machine, how the wrappers route and refuse tensors.
+``-s`` shows what kernels 3 and 4 give for a non-finite point.
 """
 
 import numpy as np
@@ -20,6 +21,17 @@ from alignnet3d_tpu_torch.ops import nn_kernels as nk
 from alignnet3d_tpu_torch.ops import pointnet_kernels as pk
 
 torch.set_num_threads(1)
+
+NON_FINITE = (float("nan"), float("inf"), float("-inf"))
+BIG = 65536  # clouds: one past the 65,535 a grid dimension may hold
+
+
+def _same(got, ref, rtol=0.0, atol=0.0):
+    """NaN in the same places; the rest within the tolerance (equal at
+    0), infinities equal."""
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    keep = ~torch.isnan(ref)
+    torch.testing.assert_close(got[keep], ref[keep], rtol=rtol, atol=atol)
 
 
 @pytest.fixture
@@ -66,6 +78,26 @@ def test_fused_pointnet_matches_twin(sm90, dims, n, dtype, tol):
     assert pk.fused_pointnet.launches == before + 1
     ref = pk.fused_pointnet_plain(points, weights, biases, dtype)
     torch.testing.assert_close(got, ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("value", NON_FINITE)
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, 1e-4),
+    (torch.bfloat16, 2e-2),
+])
+def test_fused_pointnet_non_finite_point(sm90, value, dtype, tol):
+    """One point of cloud 1 holds a non-finite coordinate: the kernel's
+    output is NaN (and infinite) where the twin's is, and agrees
+    elsewhere. The sums' NaN/inf outcome does not depend on their order."""
+    points, weights, biases = _chain(13, 4, 300, (3, 64, 128, 1024), sm90)
+    points[1, 17, 0] = value
+    got = pk.fused_pointnet(points, weights, biases, dtype)
+    ref = pk.fused_pointnet_plain(points, weights, biases, dtype)
+    torch.cuda.synchronize()
+    assert not bool(torch.isfinite(ref[1]).all())
+    assert bool(torch.isfinite(ref[[0, 2, 3]]).all())
+    _same(got, ref, tol, tol)
 
 
 @pytest.mark.gpu
@@ -175,6 +207,37 @@ def test_nn_argmin_every_column_split(sm90, chunk):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("value", NON_FINITE + (3e19,))  # 3e19: |p|^2 = inf
+@pytest.mark.parametrize("where", ["src", "dst", "dst_masked"])
+@pytest.mark.parametrize("n2", [500, 1030])  # one column chunk; three, merged
+def test_nn_argmin_non_finite_point(sm90, value, where, n2):
+    """A source point, or a valid or masked destination point, with a
+    non-finite (or overflowing) coordinate, in two pairs: bit-equal to the
+    twin, whose argmin takes the first NaN, masked columns included."""
+    rng = np.random.default_rng(14)
+    b, n1 = 4, 300
+    src = rng.normal(size=(b, n1, 3)) * 10
+    dst = rng.normal(size=(b, n2, 3)) * 10
+    mask = rng.random((b, n2)) < 0.8
+    mask[2] = False  # a pair with no valid destination point
+    if where == "src":
+        src[1, 5, 1] = src[2, 7, 0] = src[3, n1 - 1, 2] = value
+    else:
+        for pair in (1, 2):
+            for j in (200, n2 - 3):  # in the first and the last chunk
+                dst[pair, j, 2] = value
+                mask[pair, j] = where == "dst"
+    src, dst = (torch.from_numpy(a.astype(np.float32)).to(sm90)
+                for a in (src, dst))
+    mask = torch.from_numpy(mask).to(sm90)
+    idx, d2 = nk.nn_argmin(src, dst, mask)
+    ri, rd = nk.nn_argmin_plain(src, dst, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, ri)
+    _same(d2, rd)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n2", [1000, 37])  # 37: padded to 40 columns
 def test_nn_argmin_column_table_matches_twin(sm90, n2):
     """The pre-pass kernel's table and column counts against the tensor
@@ -225,6 +288,25 @@ def test_knn_points_matches_twin_bit_for_bit(sm90, b, n, k, distinct):
     assert torch.equal(got, kk.knn_points_plain(pts, k))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("value", NON_FINITE)
+def test_knn_points_non_finite_point(sm90, value):
+    """The other clouds stay bit-equal to the twin. Where the cloud holding
+    the point differs, the test prints it (-s); ROADMAP Queue 3 records it."""
+    pts = _cloud(15, 4, 300, None, sm90)
+    pts[1, 17, 0] = value
+    got = kk.knn_points(pts, 20)
+    ref = kk.knn_points_plain(pts, 20)
+    torch.cuda.synchronize()
+    assert torch.equal(got[[0, 2, 3]], ref[[0, 2, 3]])
+    rows = (got[1] != ref[1]).any(-1)
+    print(f"knn_points, point 17 of cloud 1 at {value}: {int(rows.sum())} "
+          f"of 300 rows differ from the twin; row 17 kernel "
+          f"{got[1, 17, :4].tolist()} twin {ref[1, 17, :4].tolist()}; "
+          f"rows naming 17: kernel {int((got[1] == 17).any(-1).sum())}, "
+          f"twin {int((ref[1] == 17).any(-1).sum())}")
+
+
 def _edge_inputs(seed, b, n, k, c, c1, c2, device):
     rng = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
@@ -256,6 +338,26 @@ def test_fused_edge_stage_matches_twin(sm90, b, n, k, c1, c2):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("value", NON_FINITE)
+def test_fused_edge_stage_non_finite_point(sm90, value):
+    """As for knn_points: the other clouds agree with the twin; what
+    differs in the cloud holding the point is printed (-s) and recorded in
+    ROADMAP Queue 3. The graph is that of the finite points."""
+    pts, idx, *weights = _edge_inputs(16, 4, 300, 20, 3, 64, 128, sm90)
+    pts[1, 17, 0] = value
+    got = ek.fused_edge_stage(pts, idx, *weights)
+    ref = ek.fused_edge_stage_plain(pts, idx, *weights)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[[0, 2, 3]], ref[[0, 2, 3]], rtol=1e-5,
+                               atol=1e-5)
+    print(f"fused_edge_stage, point 17 of cloud 1 at {value}: NaN kernel "
+          f"{int(got[1].isnan().sum())} twin {int(ref[1].isnan().sum())}, "
+          f"inf kernel {int(got[1].isinf().sum())} twin "
+          f"{int(ref[1].isinf().sum())}, finite and differing by > 1e-5: "
+          f"{int(((got[1] - ref[1]).abs() > 1e-5).sum())} of {ref[1].numel()}")
+
+
+@pytest.mark.gpu
 def test_wrappers_refuse_what_the_kernels_do_not_take(sm90):
     points, weights, biases = _chain(2, 2, 16, (3, 8, 16), sm90)
     with pytest.raises(ValueError, match="contiguous"):
@@ -283,6 +385,24 @@ def test_other_devices_are_refused():
     args = _edge_inputs(6, 2, 30, 20, 3, 8, 16, "meta")
     with pytest.raises(ValueError, match="device"):
         ek.fused_edge_stage(*args)
+
+
+@pytest.mark.parametrize("kernel", ["knn_points", "fused_edge_stage",
+                                    "fused_edge_stage_train"])
+def test_wrappers_refuse_no_batch_for_its_size(kernel):
+    """BIG clouds pass every shape check: on the meta device the only
+    refusal is the device's, checked last."""
+    pts = torch.zeros((BIG, 30, 3), device="meta")
+    idx = torch.zeros((BIG, 30, 20), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        if kernel == "knn_points":
+            kk.knn_points(pts, 20)
+        elif kernel == "fused_edge_stage":
+            _, _, *weights = _edge_inputs(6, 1, 30, 20, 3, 8, 16, "meta")
+            ek.fused_edge_stage(pts, idx, *weights)
+        else:
+            _, _, params, _ = _train_inputs(6, 1, 30, 20, 8, 16, "meta")
+            et.fused_edge_stage_train(pts, idx, *params)
 
 
 def test_cpu_tensors_run_the_twins(monkeypatch):
@@ -417,6 +537,146 @@ def test_fused_edge_stage_train_backward_repeats(sm90):
         assert torch.equal(g1[i], g2[i])
     for a, b in zip(g1[:2], g2[:2]):
         assert float((a - b).norm() / b.norm()) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_fused_edge_stage_train_negative_and_zero_g2(sm90):
+    """The forward picks the max over k by the sign of g2: the argmax of
+    pre2 where g2 > 0, the argmin where g2 < 0, t = 0 where g2 == 0."""
+    f, idx, params, cot = _train_inputs(19, 3, 320, 20, 64, 128, sm90)
+    g2 = params[6].clone()
+    g2[::3] = -g2[::3]
+    g2[5] = 0.0
+    params[6] = g2
+    out, stats, grads = _train_grads(et.fused_edge_stage_train, f, idx,
+                                     params, cot)
+    r_out, r_stats, r_grads = _train_grads(et.fused_edge_stage_train_plain,
+                                           f, idx, params, cot)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, r_out, rtol=1e-4, atol=1e-5)
+    for s, r in zip(stats, r_stats):
+        torch.testing.assert_close(s, r, rtol=1e-4, atol=1e-5)
+    errs = et.grad_errors(grads, r_grads)
+    assert max(errs.values()) <= 1e-4, errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("value", NON_FINITE)
+def test_fused_edge_stage_train_non_finite_point(sm90, value):
+    """One non-finite coordinate in f: the batch statistics carry it to
+    every output, so out and the statistics are NaN where the twin's are
+    (everywhere), as the Trainer's non-finite guard needs."""
+    f, idx, params, _ = _train_inputs(17, 3, 128, 20, 64, 128, sm90)
+    f[1, 9, 2] = value
+    with torch.no_grad():
+        out, stats = et.fused_edge_stage_train(f, idx, *params)
+        r_out, r_stats = et.fused_edge_stage_train_plain(f, idx, *params)
+    torch.cuda.synchronize()
+    assert bool(r_out.isnan().any())
+    _same(out, r_out, 1e-4, 1e-5)
+    for s, r in zip(stats, r_stats):
+        _same(s, r, 1e-4, 1e-5)
+
+
+@pytest.mark.gpu
+def test_fused_edge_stage_train_training_shape(sm90):
+    """256 clouds x 512 points, k=20, C1=64, C2=128: out and the statistics
+    against the twin, and the call's peak device memory (forward +
+    backward: dy1 alone is 671 MB; the twin needs ~10 GB). The gradients
+    at this shape are held to float64 by chip_smoke.py."""
+    f, idx, params, cot = _train_inputs(20, 256, 512, 20, 64, 128, sm90)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out, stats, grads = _train_grads(et.fused_edge_stage_train, f, idx,
+                                     params, cot)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"fused_edge_stage_train at the training shape: peak device "
+          f"memory above the inputs {peak / 2**30:.3f} GiB")
+    assert peak <= 1.5 * 2**30
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    with torch.no_grad():
+        r_out, r_stats = et.fused_edge_stage_train_plain(f, idx, *params)
+    torch.testing.assert_close(out, r_out, rtol=1e-4, atol=1e-5)
+    for s, r in zip(stats, r_stats):
+        torch.testing.assert_close(s, r, rtol=1e-4, atol=1e-5)
+
+
+def _big_case(kernel, device):
+    """(wrapper, its twin, inputs) of ``kernel`` at BIG clouds of 32
+    points (k=8, narrow widths)."""
+    rng = np.random.default_rng(21)
+    pts = torch.from_numpy(
+        rng.normal(size=(BIG, 32, 3)).astype(np.float32)).to(device)
+    if kernel == "fused_pointnet":
+        _, ws, bs = _chain(21, 1, 1, (3, 64, 128), device)
+        return pk.fused_pointnet, pk.fused_pointnet_plain, (pts, ws, bs)
+    if kernel == "nn_argmin":
+        dst = torch.roll(pts, 1, dims=0).contiguous()
+        mask = torch.from_numpy(rng.random((BIG, 32)) < 0.8).to(device)
+        return nk.nn_argmin, nk.nn_argmin_plain, (pts, dst, mask)
+    if kernel == "knn_points":
+        return kk.knn_points, kk.knn_points_plain, (pts, 8)
+    idx = kk.knn_points_plain(pts, 8)
+    if kernel == "fused_edge_stage":
+        _, _, *weights = _edge_inputs(21, 1, 8, 8, 3, 64, 128, device)
+        return ek.fused_edge_stage, ek.fused_edge_stage_plain, (
+            pts, idx, *weights)
+    _, _, params, _ = _train_inputs(21, 1, 8, 8, 8, 16, device)
+    return et.fused_edge_stage_train, et.fused_edge_stage_train_plain, (
+        pts, idx, *params)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["fused_pointnet", "nn_argmin",
+                                    "knn_points", "fused_edge_stage",
+                                    "fused_edge_stage_train"])
+def test_kernels_take_65536_clouds(sm90, kernel):
+    """One call over BIG clouds. Kernels 1-4 run in slices of at most
+    65,535 clouds, each held to its twin on the first and last 64 clouds;
+    kernel 5 folds the batch into its grid (its statistics are over the
+    whole batch) and is held to the twin over all of it."""
+    fn, plain, args = _big_case(kernel, sm90)
+    before = fn.launches
+    with torch.no_grad():
+        got = fn(*args)
+    torch.cuda.synchronize()
+    if kernel == "fused_edge_stage_train":
+        assert fn.launches == before + 5  # the forward's launches
+        with torch.no_grad():
+            ref = plain(*args)
+        torch.testing.assert_close(got[0], ref[0], rtol=1e-4, atol=1e-5)
+        for s, r in zip(got[1], ref[1]):
+            torch.testing.assert_close(s, r, rtol=1e-4, atol=1e-5)
+        return
+    assert fn.launches == before + 1
+    got = got if isinstance(got, tuple) else (got,)
+    for sl in (slice(0, 64), slice(BIG - 64, BIG)):
+        part = tuple(a[sl] if isinstance(a, torch.Tensor) and a.shape[0] == BIG
+                     else a for a in args)
+        ref = plain(*part)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        for g, r in zip(got, ref):
+            if g.dtype == torch.int64:
+                assert torch.equal(g[sl], r)
+            else:
+                torch.testing.assert_close(g[sl], r, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_fused_edge_stage_train_backward_at_65536_clouds(sm90):
+    """The backward at BIG clouds (its grid holds the batch too): the
+    gradients against the twin's over the whole batch, 16.8 M edges (the
+    twin's float32 sums over that many edges carry more rounding than the
+    kernel's float64 ones, hence 1e-3)."""
+    fn, plain, (pts, idx, *params) = _big_case("fused_edge_stage_train", sm90)
+    cot = torch.from_numpy(np.random.default_rng(22).normal(
+        size=(BIG, 32, 16)).astype(np.float32)).to(sm90)
+    _, _, grads = _train_grads(fn, pts, idx, params, cot)
+    _, _, r_grads = _train_grads(plain, pts, idx, params, cot)
+    errs = et.grad_errors(grads, r_grads)
+    assert max(errs.values()) <= 1e-3, errs
 
 
 def test_grad_errors_scales_absorbed_biases_by_their_shift():

@@ -89,6 +89,30 @@ def test_ties_and_fully_masked_rows():
     assert np.all(np.isinf(d2[1])) and np.all(np.isinf(np.asarray(rd)[1]))
 
 
+@pytest.mark.parametrize("value", [np.nan, np.inf, -np.inf])
+def test_non_finite_points_match_xla(value):
+    """A non-finite coordinate in a source point, in a valid and in a masked
+    destination point: the twin returns the XLA path's index everywhere
+    (``jnp.argmin`` and ``torch.argmin`` both take the first NaN, a masked
+    column's included) and its d2, NaN in the same places. The XLA path is
+    the reference: the Pallas kernel's strict-less tile minimum never
+    takes a NaN distance."""
+    src, dst, mask = _inputs(7, 3, 40, 64, (64, 50, 40))
+    src[0, 3, 1] = value
+    dst[1, 20, 2] = value  # valid
+    dst[1, 55, 0] = value  # masked
+    dst[2, 50, 0] = value  # masked, the pair's only fault
+    gi, gd = _plain(src, dst, mask)
+    ri, rd = jax.vmap(_nn_correspondences)(
+        jnp.asarray(src), jnp.asarray(dst), jnp.asarray(mask))
+    ri, rd = np.asarray(ri), np.asarray(rd)
+    np.testing.assert_array_equal(gi, ri)
+    nan = np.isnan(rd)
+    assert nan[1].any()
+    np.testing.assert_array_equal(np.isnan(gd), nan)
+    np.testing.assert_allclose(gd[~nan], rd[~nan], rtol=D2_TOL, atol=D2_TOL)
+
+
 def test_cpu_tensor_takes_the_twin_without_launching():
     src, dst, mask = _inputs(2, 2, 20, 30, (30, 30))
     before = nk.nn_argmin.launches

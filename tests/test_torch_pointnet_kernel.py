@@ -78,6 +78,25 @@ def test_bf16_rounds_like_jax():
                                           torch.float32))
 
 
+@pytest.mark.parametrize("value", [np.nan, np.inf, -np.inf])
+def test_non_finite_point_matches_xla(value):
+    """One non-finite coordinate: the twin is NaN where the XLA reference
+    is (torch.relu and amax propagate NaN as jnp.maximum and jnp.max do)
+    and agrees elsewhere, infinities included. The CUDA kernel is held to
+    the twin on such inputs in tests/test_torch_gpu_kernels.py."""
+    points, weights, biases = _inputs(seed=6)
+    points[2, 5, 1] = value
+    ref = np.asarray(fused_pointnet_xla(jnp.asarray(points),
+                                        [jnp.asarray(w) for w in weights],
+                                        [jnp.asarray(b) for b in biases],
+                                        compute_dtype=jnp.float32))
+    got = _plain(points, weights, biases, torch.float32)
+    nan = np.isnan(ref)
+    assert nan[2].any() and not nan[np.arange(8) != 2].any()
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_allclose(got[~nan], ref[~nan], rtol=1e-5, atol=1e-5)
+
+
 def test_cpu_tensor_takes_the_twin_without_launching():
     points, weights, biases = _inputs()
     before = pk.fused_pointnet.launches
