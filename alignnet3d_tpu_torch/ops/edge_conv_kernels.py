@@ -12,10 +12,11 @@ and the stage is
 
 U and V are two small products in ``torch.matmul``, as the JAX wrapper
 leaves them to XLA. The CUDA kernel (``csrc/edge_stage.cu``) does the rest
-with an indexed load of the V rows, so only the (B, N, C2) result reaches
+with an indexed load of the V rows and the C1 x C2 product on the tensor
+cores in 3xTF32 (float32 accuracy), so only the (B, N, C2) result reaches
 device memory; ``fused_edge_stage_plain`` is the same function in plain
 PyTorch, used for CPU tensors and as the kernel's reference on the card.
-Both run in float32 throughout.
+Both compute in float32.
 """
 
 from __future__ import annotations
@@ -24,22 +25,25 @@ import torch
 
 from alignnet3d_tpu_torch.ops._batch import batch_chunks
 
-# kernel tiling, as in csrc/edge_stage.cu: points staged at once, and the
-# padding rows of the edge tile
-_GROUP, _EDGES = 4, 10
+C1_MAX = 64  # the kernel's U/V row width: C1 is padded to it
 _MAX_SMEM = 232448  # bytes a block may use on sm_90
 
 # elements of one (B, chunk, k, C2) block of the plain version
 _CHUNK_ELEMS = {"cpu": 1 << 22, "cuda": 1 << 28}
 
 
-def _split(points, w1, b1):
+def _split(points, w1, b1, width=None):
     """U = x (P - Q) + b1 and V = x Q, both (B, N, C1) in the weights'
-    type (float32 on every path; float64 for a reference)."""
+    type (float32 on every path; float64 for a reference); with ``width``,
+    (B, N, width) with zero channels past C1 (zero weight columns)."""
     c = points.shape[-1]
-    p_w, q_w = w1[:c], w1[c:]
+    p_w, q_w = w1[:c] - w1[c:], w1[c:]
+    if width is not None:
+        pad = (0, width - w1.shape[1])
+        p_w, q_w = (torch.nn.functional.pad(w, pad) for w in (p_w, q_w))
+        b1 = torch.nn.functional.pad(b1, pad)
     x = points.to(w1.dtype)
-    return torch.matmul(x, p_w - q_w) + b1, torch.matmul(x, q_w)
+    return torch.matmul(x, p_w) + b1, torch.matmul(x, q_w)
 
 
 def fused_edge_stage_plain(points: torch.Tensor, nn_idx: torch.Tensor,
@@ -64,10 +68,13 @@ def fused_edge_stage_plain(points: torch.Tensor, nn_idx: torch.Tensor,
     return torch.cat(parts, dim=1)
 
 
-def _smem_bytes(k: int, c1: int, c2: int) -> int:
-    """Shared memory the kernel's block takes: W2 and a tile of edges."""
-    c1p = (c1 + 3) // 4 * 4
-    return 4 * (c1p * c2 + (_GROUP * k + _EDGES) * c1p)
+def _smem_bytes(c2: int) -> int:
+    """The least shared memory the kernel's block takes: W2 as TF32 (big,
+    small) B fragments of C1_MAX rows, and b2, both padded to a multiple
+    of 64 columns (a warp's unit). The kernel also stages the cloud's V
+    rows when they fit beside them."""
+    ntiles = -(-c2 // 64) * 8
+    return ntiles * (C1_MAX // 8) * 32 * 16 + ntiles * 8 * 4
 
 
 def _check(points, nn_idx, w1, b1, w2, b2):
@@ -89,9 +96,12 @@ def _check(points, nn_idx, w1, b1, w2, b2):
         raise ValueError("fused_edge_stage: weight/bias shapes do not chain")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fused_edge_stage: inputs must be contiguous")
-    if _smem_bytes(k, w2.shape[0], w2.shape[1]) > _MAX_SMEM:
-        raise ValueError("fused_edge_stage: W2 and the edge tile exceed a "
-                         "block's shared memory")
+    if w2.shape[0] > C1_MAX:
+        raise ValueError(f"fused_edge_stage: C1={w2.shape[0]} exceeds the "
+                         f"kernel's {C1_MAX} channels")
+    if _smem_bytes(w2.shape[1]) > _MAX_SMEM:
+        raise ValueError("fused_edge_stage: W2's fragments exceed a block's "
+                         "shared memory")
     if points.device.type != "cuda":
         raise ValueError(f"fused_edge_stage: unsupported device {points.device}")
     if any(t.device != points.device for t in tensors):
@@ -110,9 +120,9 @@ def fused_edge_stage(points: torch.Tensor, nn_idx: torch.Tensor,
     from alignnet3d_tpu_torch.ops._build import load_library
 
     lib = load_library()
-    u, v = (t.contiguous() for t in _split(points, w1, b1))
-    b, n, c1 = u.shape
-    c2 = w2.shape[1]
+    u, v = (t.contiguous() for t in _split(points, w1, b1, C1_MAX))
+    b, n, _ = u.shape
+    c1, c2 = w2.shape
     out = torch.empty((b, n, c2), dtype=torch.float32, device=points.device)
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream(points.device).cuda_stream

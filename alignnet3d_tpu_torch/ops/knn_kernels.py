@@ -2,15 +2,17 @@
 
 Counterpart of ``alignnet3d_tpu/ops/knn_kernels.py`` (``knn_points_pallas``)
 and a drop-in for ``knn(pairwise_distance(points), k)``: for every point,
-the indices of its k nearest points of the same cloud, by ascending
+the indices of its k nearest points of the same cloud, by
 
-    d2 = (|a|^2 - 2 a.q) + |q|^2,
+    d2 = (|a|^2 - 2 a.q) + |q|^2
 
-ties to the lower index, the point itself first (up to exact duplicates of
-it with a lower index). The CUDA kernel (``csrc/knn_points.cu``) and
-``knn_points_plain`` evaluate every product and sum in the same order with
-separate roundings, as ``nn_kernels`` does, so on the card they agree bit
-for bit.
+in the order of the Pallas kernel's argmin rounds: every NaN distance
+first, in index order (``jnp.argmin`` takes the first NaN), then ascending
+d2, ties to the lower index; the point itself first among finite points
+(up to exact duplicates of it with a lower index). The CUDA kernel
+(``csrc/knn_points.cu``) and ``knn_points_plain`` evaluate every product
+and sum in the same order with separate roundings, as ``nn_kernels`` does,
+and rank by the same key, so on the card they agree bit for bit.
 """
 
 from __future__ import annotations
@@ -23,7 +25,21 @@ from alignnet3d_tpu_torch.ops.nn_kernels import _sq_norm
 MAX_K = 64  # the kernel keeps the k best of each row in registers
 
 # elements of one (B, chunk, N) distance block (see nn_kernels)
-_CHUNK_ELEMS = {"cpu": 1 << 20, "cuda": 1 << 28}
+_CHUNK_ELEMS = {"cpu": 1 << 20, "cuda": 1 << 26}
+
+
+def order_key(d2: torch.Tensor) -> torch.Tensor:
+    """int64 keys that rank float32 distances as ``knn_points_pallas``
+    does: every NaN first (one key, so the stable sort keeps index order),
+    then -inf < ... < +inf, with -0.0 and +0.0 equal.
+
+    d2 can be -inf without a NaN: |a_i| = |q_i| = 1.5e19 give squares of
+    2.25e38 but a cross term a_i (-2 q_i) = -4.5e38 that overflows, so a
+    NaN cannot simply take -inf's place. The kernel's uint32 key
+    (``order_key`` in ``csrc/knn_points.cu``) ranks the same way."""
+    bits = d2.contiguous().view(torch.int32).to(torch.int64)
+    key = torch.where(bits < 0, -(bits & 0x7FFFFFFF), bits)
+    return key.masked_fill_(torch.isnan(d2), -(1 << 32))
 
 
 def knn_points_plain(points: torch.Tensor, k: int) -> torch.Tensor:
@@ -31,7 +47,8 @@ def knn_points_plain(points: torch.Tensor, k: int) -> torch.Tensor:
 
     The cross term is summed as ((a0 q0' + a1 q1') + a2 q2') with
     q' = -2 q, which equals -2 (a.q) exactly; every step rounds on its own.
-    A stable sort puts equal distances in index order."""
+    A stable sort on ``order_key`` puts NaN first and equal distances in
+    index order."""
     bsz, n, _ = points.shape
     sq = _sq_norm(points)
     qm = (-2.0 * points).permute(0, 2, 1).contiguous()  # (B, 3, N)
@@ -48,7 +65,8 @@ def knn_points_plain(points: torch.Tensor, k: int) -> torch.Tensor:
         d2 += tmp
         d2 += sq[:, s:s + chunk, None]
         d2 += sq[:, None, :]
-        parts.append(torch.sort(d2, dim=-1, stable=True).indices[..., :k])
+        parts.append(torch.sort(order_key(d2), dim=-1, stable=True)
+                     .indices[..., :k])
     return torch.cat(parts, dim=1)
 
 

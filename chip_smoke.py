@@ -17,8 +17,8 @@ From the root of a checkout, with nothing built beforehand:
 6. sends the same requests through the port on the CPU, where it runs the
    twins, and compares the answers;
 7. generates a synthetic dataset (3 x 128 training and 128 validation
-   pairs); feeds a NaN (and an infinite) point to kernels 1, 2 and 5 and
-   holds their answers to the twins', and checks that a fused DGCNN
+   pairs); feeds a NaN (and an infinite) point to kernels 1-5 and holds
+   their answers to the twins', and checks that a fused DGCNN
    training step on a batch with a NaN point gives a non-finite loss (the
    ``Trainer``'s guard); holds the fused training edge stage against its
    twin at the training shape, forward and backward, and its gradients
@@ -69,11 +69,13 @@ DGCNN_REQUESTS = (  # no ICP: that path is the PointNet requests'
     ("dgcnn flips", {"resolve_flips": True}),
 )
 # H100 SXM peaks (NVIDIA data sheet, 700 W): FP32 outside the tensor
-# cores, and device memory
+# cores, dense TF32 on the tensor cores, and device memory
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 FP32_LANE_OPS = FP32_FLOPS / 2   # an FMA counts as two FLOPs
 HBM_BYTES = 3.35e12
-EDGE_TOL = 1e-5          # edge stage vs twin: summation order over C1
+EDGE_TOL = 1e-5          # edge stage vs twin: 3xTF32 products (f32
+#                          accuracy) summed over C1 in another order
 NET_ATOL = 1e-3          # network-only answers, card vs CPU
 TIE_MARGIN = 1e-3        # a decision this close is settled by rounding
 # The DGCNN's kNN graph is a discontinuous function of its input: a
@@ -421,12 +423,21 @@ def fused_edge_stage_phase(spec, state, graph):
               f"max |out| {float(ref.abs().max()):.3e}; kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms")
         check(ok, f"fused_edge_stage {name} disagrees with its twin")
-        # the k x C1 x C2 product per point on the FP32 pipes (the U/V
-        # products add 2 x 2 x 3 x C1 per point); bytes: U, V, idx, out
-        flops = 2.0 * b * n * (k * c1 * c2 + 2 * x.shape[-1] * c1)
+        # the kernel's route: the k x C1 x C2 product per point in three
+        # TF32 passes on the tensor cores (3xTF32), plus the U/V products
+        # (2 x 2 x 3 x C1 per point) on the FP32 pipes, counted here at
+        # their FP32 time; beside it the FP32-pipe bound of the function.
+        # bytes: U, V, idx, out
+        prod = 2.0 * b * n * k * c1 * c2
+        uv = 2.0 * b * n * 2 * x.shape[-1] * c1
         nbytes = 4 * b * n * (2 * c1 + c2) + idx.numel() * 8
-        result[name] = (err, ms, plain_ms,
-                        *bound(flops, FP32_FLOPS, nbytes))
+        tc = bound(3 * prod + uv * TF32_FLOPS / FP32_FLOPS, TF32_FLOPS,
+                   nbytes)
+        fp32 = bound(prod + uv, FP32_FLOPS, nbytes)
+        print(f"fused_edge_stage {name} bound: {tc[0]:.4f} ms by {tc[1]} "
+              f"(3xTF32 on the tensor cores, the kernel's route); "
+              f"{fp32[0]:.4f} ms by {fp32[1]} on the FP32 pipes")
+        result[name] = (err, ms, plain_ms, *tc)
     return result
 
 
@@ -744,12 +755,14 @@ def _same_nan(got, ref, tol):
 
 
 def nan_phase(spec, state, clouds, pcs1, pcs2, basepath: str, workdir: str):
-    """Kernels 1, 2 and 5 against their twins on inputs with a NaN and an
-    infinite point: kernel 1 on the embedding chain at the serving batch,
-    kernel 2 at the flip shape (bit-equal), kernel 5 on 16 clouds of the
-    training shape's points; then one fused DGCNN training step on a batch
-    with a NaN point, whose loss must be non-finite, as the Trainer's
-    guard reads it."""
+    """Kernels 1-5 against their twins on inputs with a NaN and an infinite
+    point: kernel 1 on the embedding chain at the serving batch, kernel 2
+    at the flip shape (bit-equal), kernels 3-5 on 16 clouds of 512 points
+    (kernel 3 bit-equal; kernel 4 over the finite points' graph and over
+    kernel 3's graph of the non-finite cloud, with NaN and +-inf); then one
+    fused DGCNN training step on a batch with a NaN point, whose loss must
+    be non-finite, as the Trainer's guard reads it."""
+    from alignnet3d_tpu_torch.ops import edge_conv_kernels as ek
     from alignnet3d_tpu_torch.ops import edge_train_kernels as et
     from alignnet3d_tpu_torch.ops import knn_kernels as kk
     from alignnet3d_tpu_torch.ops import nn_kernels as nk
@@ -794,6 +807,34 @@ def nan_phase(spec, state, clouds, pcs1, pcs2, basepath: str, workdir: str):
         1 + 0.2 * rng.normal(size=64), 0.1 * rng.normal(size=64),
         rng.normal(size=(64, 128)) / 8.0, rng.normal(size=128) * 0.1,
         1 + 0.2 * rng.normal(size=128), 0.1 * rng.normal(size=128))]
+    edge_weights = [params[i] for i in (0, 1, 4, 5)]  # w1, b1, w2, b2
+    for value in (float("nan"), float("inf"), float("-inf")):
+        g = f.clone()
+        g[1, 9, 2] = value
+        got = kk.knn_points(g, 20)
+        ref = kk.knn_points_plain(g, 20)
+        torch.cuda.synchronize()
+        ok3 = bool(torch.equal(got, ref))
+        print(f"NaN phase, knn_points with a point at {value}: rows that "
+              f"differ from the twin {int((got != ref).any(-1).sum())}; "
+              f"bit-equal: {ok3}")
+        check(ok3, "knn_points: a non-finite point's graph differs from the "
+              "twin's")
+        for name, graph in (("finite graph", idx), ("kernel 3 graph", got)):
+            out = ek.fused_edge_stage(g, graph, *edge_weights)
+            r_out = ek.fused_edge_stage_plain(g, graph, *edge_weights)
+            torch.cuda.synchronize()
+            ok4 = _same_nan(out, r_out, EDGE_TOL)
+            print(f"NaN phase, fused_edge_stage with a point at {value}, "
+                  f"{name}: NaN kernel {int(out.isnan().sum())} twin "
+                  f"{int(r_out.isnan().sum())}, inf kernel "
+                  f"{int(out.isinf().sum())} twin {int(r_out.isinf().sum())};"
+                  f" NaN in the same places, the rest within {EDGE_TOL}: "
+                  f"{ok4}")
+            check(ok4 and not bool(torch.isfinite(r_out).all()),
+                  "fused_edge_stage: a non-finite point's answer differs "
+                  "from the twin's")
+
     for value in (float("nan"), float("inf")):
         f[1, 9, 2] = value
         with torch.no_grad():
@@ -1323,8 +1364,8 @@ def main() -> int:
          "alignnet3d_tpu/ops/edge_train_kernels.py:421", k5),
     )
     # library_ms is null: no one PyTorch call computes any of these
-    # functions (a fused chain + max, a masked argmin, an ordered top-k
-    # with index ties, a gathered 2-layer chain + max, the same with
+    # functions (a fused chain + max, a masked argmin, a top-k ordered
+    # NaN first with index ties, a gathered 2-layer chain + max, the same with
     # batch-statistic BN and its gradient)
     kernels = [
         {"name": name, "route": "cuda",

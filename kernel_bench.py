@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Times the port's two serving-path kernels (and, with ``--train``, the
+"""Times the port's two PointNet serving-path kernels (with ``--dgcnn``,
+the two DGCNN serving kernels and the DGCNN forward; with ``--train``, the
 fused training edge stage) on one CUDA card, optionally against another
 checkout's build of them, in turns.
 
     python3 kernel_bench.py [--other DIR] [--sweep] [--ptxas] [--requests N]
-                            [--train] [--out FILE]
+                            [--dgcnn] [--train] [--out FILE]
 
 From the root of a checkout. The inputs are ``chip_smoke.py``'s: the
 stacked PointNet serving batch (256 clouds x 512 points) with the three
@@ -22,6 +23,12 @@ and checked against its plain twin (``nn_argmin`` bit for bit).
   splits than its plan picks, and its pre-pass alone.
 - ``--ptxas``: prints the registers, spills and shared memory that
   ``nvcc -Xptxas -v`` reports for the timed kernels' sources.
+- ``--dgcnn``: also times ``knn_points`` (k=20) and ``fused_edge_stage``
+  (the folded conv1/conv2 of the s1, s2 and embedding stacks of
+  ``configs/SynthCars40kDGCNN.json``, seeded random weights) at the
+  serving shape, 256 request clouds x 512 points over their kNN graph, as
+  ``chip_smoke.py``'s kernel phases build them, each against its twin;
+  and the folded DGCNN forward of 128 pairs (CUDA events).
 - ``--requests N``: also times N rounds of ``chip_smoke.py``'s three
   PointNet requests of 128 pairs (plain, flips, flips + ICP) through
   ``Aligner.align``, on the host clock.
@@ -102,6 +109,25 @@ def make_inputs(path: str) -> None:
                                  ).astype(np.float32)
     arrays["train.dout"] = rng.normal(size=(len(clouds), 512, 128)).astype(
         np.float32)
+    # the DGCNN: chip_smoke.py's knn phase request set and the folded
+    # conv1/conv2 of each stack; the forward's resampled pairs and weights
+    with open(cs.DGCNN_CONFIG) as f:
+        dspec = ModelSpec.from_config(config_from_dict(json.load(f)))
+    dstate = cs.seeded_weights(dspec)
+    arrays["dgcnn.x"] = cs._resampled(clouds, dspec.num_points,
+                                      np.random.default_rng(cs.SEED + 3))
+    for name, prefix in (("s1", "siamese.transformer1.DGCNNBackbone_0"),
+                         ("s2", "siamese.transformer2.DGCNNBackbone_0"),
+                         ("embedding", "siamese.DGCNNBackbone_0")):
+        (w1, w2, _), (b1, b2, _) = _fold_chain(dstate, prefix, 3, "cpu")
+        for key, val in (("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)):
+            arrays[f"dgcnn.{name}.{key}"] = val.numpy()
+    rng = np.random.default_rng(cs.SEED + 7)
+    for side, pcs in zip("ab", requests[0]):
+        arrays[f"dgcnn.pair_{side}"] = np.stack(
+            [c[rng.integers(0, len(c), dspec.num_points)] for c in pcs]
+        ).astype(np.float32)
+    arrays.update({f"dstate/{k}": v.numpy() for k, v in dstate.items()})
     np.savez(path, **arrays)
 
 
@@ -209,6 +235,44 @@ def time_train(t) -> dict:
             "profile": device_breakdown(call, 5)}
 
 
+def time_dgcnn(t, data) -> dict:
+    """Kernels 3 and 4 at the DGCNN serving shape against their twins, and
+    the folded DGCNN forward of 128 pairs, all with CUDA events."""
+    import torch
+
+    import chip_smoke as cs
+    from alignnet3d_tpu_torch.api import Aligner
+    from alignnet3d_tpu_torch.config import config_from_dict
+    from alignnet3d_tpu_torch.models.alignnet import ModelSpec
+    from alignnet3d_tpu_torch.ops import edge_conv_kernels as ek
+    from alignnet3d_tpu_torch.ops import knn_kernels as kk
+
+    x = t["dgcnn.x"]
+    idx = kk.knn_points(x, 20)
+    out = {"knn_points": {
+        "bit_equal": bool(torch.equal(idx, kk.knn_points_plain(x, 20))),
+        "ms": cuda_ms(lambda: kk.knn_points(x, 20), 50),
+        "device_ms": device_ms(lambda: kk.knn_points(x, 20), 50)}}
+    for name in CHAINS:
+        args = (x, idx, *(t[f"dgcnn.{name}.{k}"]
+                          for k in ("w1", "b1", "w2", "b2")))
+        got = ek.fused_edge_stage(*args)
+        err = float((got - ek.fused_edge_stage_plain(*args)).abs().max())
+        out[f"fused_edge_stage {name}"] = {
+            "ms": cuda_ms(lambda: ek.fused_edge_stage(*args), 20),
+            "device_ms": device_ms(lambda: ek.fused_edge_stage(*args), 20),
+            "max_abs_err": err}
+    with open(cs.DGCNN_CONFIG) as f:
+        spec = ModelSpec.from_config(config_from_dict(json.load(f)))
+    state = {k[7:]: torch.from_numpy(data[k]) for k in data.files
+             if k.startswith("dstate/")}
+    aligner = Aligner(spec, state, batch_size=cs.PAIRS, seed=cs.SEED,
+                      device="cuda")
+    a, b = t["dgcnn.pair_a"], t["dgcnn.pair_b"]
+    out["forward_ms"] = cuda_ms(lambda: aligner._forward(a, b), 20)
+    return out
+
+
 def device_breakdown(fn, reps: int) -> dict:
     """torch.profiler (CUPTI) over ``reps`` calls of ``fn``, ending in a
     synchronize: the host-clock ms a call (profiler overhead included), the
@@ -263,11 +327,12 @@ def time_step(basepath: str) -> dict:
 
 
 def run(root: str, inputs: str, sweep: bool, requests: int,
-        train: bool = False) -> dict:
+        train: bool = False, dgcnn: bool = False) -> dict:
     """Time the kernels of the checkout at ``root`` (imported from there)
     and, with ``requests`` > 0, that many rounds of the three requests.
     With ``train``, the training step reads the dataset that ``main`` made
-    beside ``inputs``."""
+    beside ``inputs``. With ``dgcnn``, the DGCNN serving kernels and
+    forward."""
     sys.path.insert(0, root)
     import torch
 
@@ -312,6 +377,8 @@ def run(root: str, inputs: str, sweep: bool, requests: int,
                     "bit_equal": ok}
             out["sweep"][f"{name} column_table"] = {
                 "device_ms": device_ms(lambda: nk.column_table(dst, mask), 50)}
+    if dgcnn:
+        out["dgcnn"] = time_dgcnn(t, data)
     if train:
         out["train"] = time_train(t)
         out["step"] = time_step(os.path.join(os.path.dirname(inputs), "data"))
@@ -326,7 +393,8 @@ def ptxas_report() -> None:
     from alignnet3d_tpu_torch.ops import _build
 
     with tempfile.TemporaryDirectory() as work:
-        for name in ("nn_argmin", "fused_pointnet", "edge_train"):
+        for name in ("nn_argmin", "fused_pointnet", "edge_train",
+                     "knn_points", "edge_stage"):
             src = _build.CSRC_DIR / f"{name}.cu"
             proc = subprocess.run(
                 [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
@@ -348,6 +416,9 @@ def main() -> int:
     parser.add_argument("--requests", type=int, default=0, metavar="N",
                         help="also time N rounds of chip_smoke.py's three "
                         "PointNet requests (host clock)")
+    parser.add_argument("--dgcnn", action="store_true",
+                        help="also time knn_points, fused_edge_stage and "
+                        "the folded DGCNN forward")
     parser.add_argument("--train", action="store_true",
                         help="also time fused_edge_stage_train and the "
                         "fused DGCNN training step")
@@ -357,7 +428,8 @@ def main() -> int:
     args = parser.parse_args()
     if args.run:
         print(json.dumps(run(*args.run, sweep=args.sweep,
-                             requests=args.requests, train=args.train)))
+                             requests=args.requests, train=args.train,
+                             dgcnn=args.dgcnn)))
         return 0
 
     import torch
@@ -393,6 +465,8 @@ def main() -> int:
             cmd += ["--requests", str(args.requests)]
             if args.train:
                 cmd.append("--train")
+            if args.dgcnn:
+                cmd.append("--dgcnn")
             proc = subprocess.run(cmd, capture_output=True, text=True, cwd=root)
             if proc.returncode != 0:
                 print(proc.stdout + proc.stderr, file=sys.stderr)

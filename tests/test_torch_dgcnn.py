@@ -143,6 +143,35 @@ def test_folded_matches_jax_folded(trained):
                                    err_msg=key)
 
 
+def test_folded_matches_jax_folded_on_a_nan_point(trained):
+    """A NaN coordinate in one point of pair 2's first cloud: the same
+    answers of that pair are non-finite in both packages (the cloud's
+    mean, and so every centred point, is NaN), and the rest agree within
+    FOLDED_TOL."""
+    variables, state = trained
+    a, b = _pairs(4, 4)
+    a[2, 11, 1] = np.nan
+    ref = jax_build(SPEC, variables, compute_dtype=jnp.float32)(
+        jnp.asarray(a), jnp.asarray(b))
+    got = build_inference_fn(torch_spec(SPEC), state, torch.float32,
+                             device="cpu")(torch.from_numpy(a),
+                                           torch.from_numpy(b))
+    assert got.keys() == ref.keys()
+    finite = []
+    for key in ref:
+        r, g = np.asarray(ref[key]), got[key].numpy()
+        if not np.issubdtype(r.dtype, np.floating):
+            continue
+        bad = ~np.isfinite(r.reshape(len(r), -1)).all(-1)
+        np.testing.assert_array_equal(
+            ~np.isfinite(g.reshape(len(g), -1)).all(-1), bad, err_msg=key)
+        finite.append(~bad)
+        np.testing.assert_allclose(g[~bad], r[~bad], rtol=FOLDED_TOL,
+                                   atol=FOLDED_TOL, err_msg=key)
+    assert not all(f[2] for f in finite)
+    assert all(f[[0, 1, 3]].all() for f in finite)
+
+
 def test_folded_path_runs_knn_then_the_edge_stage(trained, monkeypatch):
     _, state = trained
     calls = []

@@ -7,7 +7,6 @@ This file imports no jax, so it also runs where only PyTorch is installed:
 
 The tests marked ``gpu`` skip on a machine without a Hopper card; the
 others check, on any machine, how the wrappers route and refuse tensors.
-``-s`` shows what kernels 3 and 4 give for a non-finite point.
 """
 
 import numpy as np
@@ -278,6 +277,8 @@ def _cloud(seed, b, n, distinct=None, device="cpu"):
     (2, 37, 37, None),      # k = N
     (4, 1500, 64, None),    # the largest k; two candidate tiles
     (5, 9, 3, None),        # fewer points than a warp
+    (8, 512, 64, 5),        # 5-point clouds, the largest k: queues fill often
+    (8, 512, 8, 5),
 ])
 def test_knn_points_matches_twin_bit_for_bit(sm90, b, n, k, distinct):
     pts = _cloud(4, b, n, distinct, sm90)
@@ -291,20 +292,18 @@ def test_knn_points_matches_twin_bit_for_bit(sm90, b, n, k, distinct):
 @pytest.mark.gpu
 @pytest.mark.parametrize("value", NON_FINITE)
 def test_knn_points_non_finite_point(sm90, value):
-    """The other clouds stay bit-equal to the twin. Where the cloud holding
-    the point differs, the test prints it (-s); ROADMAP Queue 3 records it."""
+    """Point 17 of cloud 1 holds a non-finite coordinate: bit-equal to the
+    twin on all four clouds. The twin ranks as knn_points_pallas does
+    (NaN distances first), so with a NaN point 17 heads every other row
+    of its cloud."""
     pts = _cloud(15, 4, 300, None, sm90)
     pts[1, 17, 0] = value
     got = kk.knn_points(pts, 20)
     ref = kk.knn_points_plain(pts, 20)
     torch.cuda.synchronize()
-    assert torch.equal(got[[0, 2, 3]], ref[[0, 2, 3]])
-    rows = (got[1] != ref[1]).any(-1)
-    print(f"knn_points, point 17 of cloud 1 at {value}: {int(rows.sum())} "
-          f"of 300 rows differ from the twin; row 17 kernel "
-          f"{got[1, 17, :4].tolist()} twin {ref[1, 17, :4].tolist()}; "
-          f"rows naming 17: kernel {int((got[1] == 17).any(-1).sum())}, "
-          f"twin {int((ref[1] == 17).any(-1).sum())}")
+    assert torch.equal(got, ref)
+    if value != value:
+        assert bool((got[1, torch.arange(300) != 17, 0] == 17).all())
 
 
 def _edge_inputs(seed, b, n, k, c, c1, c2, device):
@@ -325,6 +324,7 @@ def _edge_inputs(seed, b, n, k, c, c1, c2, device):
     (3, 300, 20, 64, 128),     # N not a multiple of the point strip
     (2, 37, 37, 64, 128),      # k = N
     (2, 97, 5, 13, 200),       # odd widths; C2 over one column pass
+    (2, 1500, 20, 64, 128),    # V too large for shared memory: read from L2
 ])
 def test_fused_edge_stage_matches_twin(sm90, b, n, k, c1, c2):
     args = _edge_inputs(5, b, n, k, 3, c1, c2, sm90)
@@ -332,29 +332,50 @@ def test_fused_edge_stage_matches_twin(sm90, b, n, k, c1, c2):
     got = ek.fused_edge_stage(*args)
     torch.cuda.synchronize()
     assert ek.fused_edge_stage.launches == before + 1
-    # f32 FMAs summed over C1 in another order than the twin's product
+    # 3xTF32 products (f32 accuracy) summed over C1 in another order than
+    # the twin's f32 product
     torch.testing.assert_close(got, ek.fused_edge_stage_plain(*args),
                                rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("graph", ["finite", "knn_points"])
 @pytest.mark.parametrize("value", NON_FINITE)
-def test_fused_edge_stage_non_finite_point(sm90, value):
-    """As for knn_points: the other clouds agree with the twin; what
-    differs in the cloud holding the point is printed (-s) and recorded in
-    ROADMAP Queue 3. The graph is that of the finite points."""
+def test_fused_edge_stage_non_finite_point(sm90, value, graph):
+    """Point 17 of cloud 1 holds a non-finite coordinate, over the finite
+    points' graph or over kernel 3's graph of the cloud as it is: NaN where
+    the twin has NaN, the rest (infinities included) within 1e-5, on all
+    four clouds. An infinite point makes infinite activations, where a
+    3xTF32 split must not turn inf - inf or inf x 0 into NaN."""
     pts, idx, *weights = _edge_inputs(16, 4, 300, 20, 3, 64, 128, sm90)
     pts[1, 17, 0] = value
+    if graph == "knn_points":
+        idx = kk.knn_points(pts, 20)
     got = ek.fused_edge_stage(pts, idx, *weights)
     ref = ek.fused_edge_stage_plain(pts, idx, *weights)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got[[0, 2, 3]], ref[[0, 2, 3]], rtol=1e-5,
-                               atol=1e-5)
-    print(f"fused_edge_stage, point 17 of cloud 1 at {value}: NaN kernel "
-          f"{int(got[1].isnan().sum())} twin {int(ref[1].isnan().sum())}, "
-          f"inf kernel {int(got[1].isinf().sum())} twin "
-          f"{int(ref[1].isinf().sum())}, finite and differing by > 1e-5: "
-          f"{int(((got[1] - ref[1]).abs() > 1e-5).sum())} of {ref[1].numel()}")
+    assert not bool(torch.isfinite(ref[1]).all())
+    assert bool(torch.isfinite(ref[[0, 2, 3]]).all())
+    _same(got, ref, 1e-5, 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("value", (float("inf"), float("-inf")))
+def test_fused_edge_stage_tf32_exact_weights_and_an_infinite_point(sm90,
+                                                                   value):
+    """Every W2 entry a positive multiple of 1/8, exact in TF32, so
+    W_small = 0: an infinite activation times W_small would be inf x 0 =
+    NaN where the f32 product inf x w is +inf. With W2 > 0 and h1 >= 0 no
+    inf - inf arises, so the rows that have the point as a neighbour are
+    +inf in the twin."""
+    pts, idx, w1, b1, w2, b2 = _edge_inputs(23, 3, 200, 20, 3, 64, 128, sm90)
+    w2 = (torch.round(w2.abs() * 8) + 1) / 8
+    pts[2, 5, 1] = value
+    got = ek.fused_edge_stage(pts, idx, w1, b1, w2, b2)
+    ref = ek.fused_edge_stage_plain(pts, idx, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert bool(ref[2].isinf().any())
+    _same(got, ref, 1e-5, 1e-5)
 
 
 @pytest.mark.gpu
@@ -450,6 +471,7 @@ def test_knn_points_refuses_what_the_kernel_does_not_take(case, match):
     ("w1_rows", "chain"),
     ("strided_idx", "contiguous"),
     ("smem", "shared memory"),
+    ("wide_c1", "C1=65"),
 ])
 def test_fused_edge_stage_refuses_what_the_kernel_does_not_take(case, match):
     pts, idx, w1, b1, w2, b2 = _edge_inputs(8, 2, 30, 20, 3, 8, 16, "meta")
@@ -464,9 +486,12 @@ def test_fused_edge_stage_refuses_what_the_kernel_does_not_take(case, match):
     elif case == "strided_idx":
         idx = torch.zeros((2, 20, 30), dtype=torch.int64,
                           device="meta").transpose(1, 2)
-    else:
+    elif case == "smem":
         w2 = torch.zeros((8, 8000), device="meta")
         b2 = torch.zeros((8000,), device="meta")
+    else:
+        pts, idx, w1, b1, w2, b2 = _edge_inputs(8, 2, 30, 20, 3, 65, 16,
+                                                "meta")
     with pytest.raises(ValueError, match=match):
         ek.fused_edge_stage(pts, idx, w1, b1, w2, b2)
 

@@ -72,6 +72,37 @@ def test_knn_points_matches_pallas(b, n, k):
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
+@pytest.mark.parametrize("value", [np.nan, np.inf, -np.inf])
+def test_knn_points_matches_pallas_on_a_non_finite_point(value):
+    """One coordinate of point 17 of cloud 1 is NaN or infinite. The Pallas
+    kernel's argmin rounds rank every NaN distance first, in index order:
+    with a NaN point, 17 heads every row of its cloud and row 17 is
+    [0, 1, 2, ...]. The twin's order key gives the same rows."""
+    pts = _points(17, 2, 40)
+    pts[1, 17, 0] = value
+    ref = np.asarray(knn_points_pallas(jnp.asarray(pts), 6, interpret=True))
+    got = knn_points(torch.from_numpy(pts), 6).numpy()
+    np.testing.assert_array_equal(got, ref)
+    if np.isnan(value):
+        assert (np.delete(got[1, :, 0], 17) == 17).all()
+        np.testing.assert_array_equal(got[1, 17], np.arange(6))
+
+
+def test_knn_points_ranks_nan_before_an_overflowing_distance():
+    """|a_i| = |q_i| = 1.5e19: the squares are finite (2.25e38) but the
+    cross term overflows, so d2 = -inf for that pair while a NaN point's
+    distances are NaN. NaN ranks first, then -inf, as the Pallas kernel
+    ranks them."""
+    pts = _points(18, 1, 40)
+    pts[0, 3] = (1.5e19, 0.0, 0.0)
+    pts[0, 9] = (1.5e19, 0.0, 0.0)
+    pts[0, 30, 1] = np.nan
+    ref = np.asarray(knn_points_pallas(jnp.asarray(pts), 5, interpret=True))
+    got = knn_points(torch.from_numpy(pts), 5).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert got[0, 3, 0] == 30 and got[0, 3, 1] == 3 and got[0, 3, 2] == 9
+
+
 @pytest.mark.parametrize("case", ["pairs", "resampled"])
 def test_knn_points_ties_go_to_the_lower_index(case):
     if case == "pairs":  # every point twice, as tests/test_knn_kernels.py
