@@ -1,0 +1,82 @@
+"""Command line of the port, flag-compatible with ``alignnet3d_tpu/cli.py``
+(reference train.py:32-40), plus ``--device``:
+
+    python -m alignnet3d_tpu_torch.cli {train,eval_only} --config C.json
+        [--refineICP] [--its N] [--use_old_results]
+        [--refineICPmethod p2p|p2plane] [--eval_epoch E] [--seed S]
+        [--device cuda|cpu]
+
+It runs on the card unless ``--device cpu`` is given. Of the special
+evaluation modes (``evaluation.special.mode``, reference train.py:548-561)
+'timings' runs (10 timed evals at batch 32); 'held' and 'icp' are not
+ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog="python -m alignnet3d_tpu_torch.cli")
+    parser.add_argument("operation", choices=["train", "eval_only"],
+                        help="Operation to run")
+    parser.add_argument("--config", required=True, help="Config file")
+    parser.add_argument("--refineICP", action="store_true",
+                        help="Refine results with ICP")
+    parser.add_argument("--its", required=False, default=30,
+                        help="ICP refinement iterations")
+    parser.add_argument("--use_old_results", action="store_true",
+                        help="Reuse stored predictions instead of inference")
+    parser.add_argument("--refineICPmethod", required=False, default="p2p",
+                        choices=["p2p", "p2plane"],
+                        help="ICP method for refinement")
+    parser.add_argument("--eval_epoch", required=False, default="199",
+                        help="Epoch to eval in eval_only mode")
+    parser.add_argument("--seed", required=False, default=0, type=int)
+    parser.add_argument("--device", required=False, default="cuda",
+                        help="torch device: cuda (the kernels) or cpu (their "
+                        "plain versions)")
+    return parser
+
+
+def main(argv=None):
+    """Run the command; returns the last ``Trainer``."""
+    flags = build_parser().parse_args(argv)
+
+    from alignnet3d_tpu_torch.config import load_config
+    from alignnet3d_tpu_torch.training.trainer import Trainer
+
+    cfg = load_config(flags.config)
+    if cfg.evaluation.has("special"):
+        mode = cfg.evaluation.special.mode
+        if mode == "timings":
+            for bs in [32]:
+                cfg.training.__dict__["batch_size"] = bs
+                trainer = Trainer(cfg, seed=flags.seed, device=flags.device)
+                trainer.train(eval_only=True, eval_epoch=flags.eval_epoch,
+                              do_timings=True, override_batch_size=bs)
+            return trainer
+        if mode == "held":
+            raise NotImplementedError(
+                "evaluation.special.mode 'held' is not ported yet (ROADMAP.md,"
+                " Queue 1: the KITTI/held evaluation toolchain)")
+        if mode == "icp":
+            raise NotImplementedError(
+                "evaluation.special.mode 'icp' is not ported yet (ROADMAP.md, "
+                "Queue 1: FPFH, FGR and the standalone ICP runner)")
+        raise ValueError(f"unknown special mode {mode!r}")
+
+    trainer = Trainer(cfg, seed=flags.seed, device=flags.device)
+    if flags.operation == "train":
+        trainer.train()
+    else:
+        trainer.train(eval_only=True, eval_epoch=flags.eval_epoch,
+                      refine_icp=flags.refineICP, icp_its=int(flags.its),
+                      icp_method=flags.refineICPmethod,
+                      use_old_results=flags.use_old_results)
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -14,9 +14,11 @@ drawn from one generator is bit-equal in both packages:
 to it as ``packed_v2.npz`` + ``packed_v2_points{1,2}.npy`` (memory-mapped),
 after which ``sample_batch`` resamples each cloud with replacement to
 ``num_points`` (reference provider.py:97-98) with a few vectorised gathers.
-Only its numpy path is ported: the native C++ assembler
-(``native/loader.cpp``), the component filter and the voxel resampling
-view raise ``NotImplementedError`` (ROADMAP.md, Queue 1).
+Two views rewrite what it draws from: the component filter
+(data.denoise) and the voxel resampling view (data.resample), cached
+under the JAX package's names. Only the numpy path is ported: the native
+C++ assembler (``native/loader.cpp``) raises ``NotImplementedError``
+(ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import time
 
 import numpy as np
 
+from alignnet3d_tpu_torch.data.denoise import component_filter_indices
 from alignnet3d_tpu_torch.geometry import str_to_np
 
 logger = logging.getLogger("alignnet3d_tpu_torch")
@@ -76,7 +79,7 @@ def voxel_dedup_indices(points, cloud_ids, voxel_size: float):
 def _not_ported(what: str):
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP.md, Queue 1: the native loader "
-        "binding and data.denoise/data.resample)")
+        "binding)")
 
 
 class PackedDataset:
@@ -85,6 +88,7 @@ class PackedDataset:
     def __init__(self, basepath: str, indices=None, cache: bool = True,
                  mmap: bool = True):
         self.basepath = basepath
+        self._vox = None  # (points, offsets, counts) per side, voxel view
         all_indices = self._discover_indices(basepath)
         meta_file = os.path.join(basepath, f"packed_v{PACK_VERSION}.npz")
         point_files = {
@@ -326,11 +330,218 @@ class PackedDataset:
     def __len__(self):
         return len(self.indices)
 
-    def enable_component_filter(self, *args, **kwargs):
-        raise _not_ported("PackedDataset.enable_component_filter")
+    # --------------------------------------------- component clutter filter
 
-    def enable_voxel_resample(self, *args, **kwargs):
-        raise _not_ported("PackedDataset.enable_voxel_resample")
+    def enable_component_filter(self, cell: float = 0.5,
+                                keep: str = "central", cache: bool = True):
+        """Clutter rejection view (``data/denoise.py``): each cloud is
+        replaced by its kept grid-connectivity component, so every later
+        consumer (uniform resample, voxel view, ICP) sees the filtered
+        geometry. Cached as ``packed_v2_dn{k}_{cell}{keep[0]}``. Must come
+        before ``enable_voxel_resample``, whose cache stem then carries the
+        filter's tag."""
+        if self._vox is not None:
+            raise ValueError("enable_component_filter must come before the "
+                             "voxel view")
+        cell = float(cell)
+        for k in (1, 2):
+            counts = np.asarray(getattr(self, f"counts{k}"))
+            offsets = np.asarray(getattr(self, f"offsets{k}"))
+            pts = getattr(self, f"points{k}")
+            stem = os.path.join(
+                self.basepath,
+                f"packed_v{PACK_VERSION}_dn{k}_{cell:g}{keep[0]}")
+            pfile, mfile = f"{stem}_points.npy", f"{stem}_meta.npz"
+            if cache and os.path.isfile(pfile) and os.path.isfile(mfile):
+                meta = np.load(mfile)
+                new_counts = meta["counts"]
+                new_pts = np.load(pfile, mmap_mode="r")
+                if (len(new_counts) == len(counts)
+                        and int(meta["parent_total"]) == len(pts)
+                        and int(new_counts.sum()) == len(new_pts)):
+                    self._set_parent_arrays(k, new_pts, new_counts)
+                    continue
+            kept_all = []
+            new_counts = np.zeros(len(counts), dtype=np.int64)
+            for start, end in self._cloud_blocks(counts, 4_000_000):
+                lo, hi = int(offsets[start]), int(offsets[end])
+                if hi > lo:
+                    block = np.asarray(pts[lo:hi], dtype=np.float32)
+                    cid = np.repeat(np.arange(start, end, dtype=np.int64),
+                                    counts[start:end])
+                    kept = component_filter_indices(block, cid, cell, keep)
+                    kept_all.append(kept + lo)
+                    new_counts[start:end] = np.bincount(
+                        cid[kept] - start, minlength=end - start)
+            kept_idx = (np.concatenate(kept_all) if kept_all
+                        else np.zeros(0, dtype=np.int64))
+            new_pts = (np.asarray(pts, dtype=np.float32)[kept_idx]
+                       if len(kept_idx) else np.zeros((0, 3), np.float32))
+            if cache:
+                try:
+                    tmp = f"{pfile}.tmp.{os.getpid()}.npy"
+                    np.save(tmp[:-4], new_pts)
+                    os.replace(tmp, pfile)
+                    self._savez_atomic(mfile, {
+                        "counts": new_counts,
+                        "parent_total": np.int64(len(pts))})
+                except OSError:
+                    pass  # read-only dir: the filtered view stays in RAM
+            self._set_parent_arrays(k, new_pts, new_counts)
+        self._denoise_tag = f"dn{cell:g}{keep[0]}"
+
+    @staticmethod
+    def _cloud_blocks(counts, chunk_points: int):
+        """(start, end) runs of whole clouds of at most ``chunk_points``
+        points each (one cloud alone may exceed it)."""
+        start, n_clouds = 0, len(counts)
+        while start < n_clouds:
+            end, npts = start, 0
+            while end < n_clouds and (npts == 0
+                                      or npts + counts[end] <= chunk_points):
+                npts += int(counts[end])
+                end += 1
+            yield start, end
+            start = end
+
+    def _set_parent_arrays(self, k: int, pts, counts):
+        offsets = np.zeros(len(counts) + 1, dtype=np.int64)
+        np.cumsum(counts, out=offsets[1:])
+        setattr(self, f"points{k}", pts)
+        setattr(self, f"counts{k}", np.asarray(counts, dtype=np.int64))
+        setattr(self, f"offsets{k}", offsets)
+
+    # ------------------------------------------------- voxel resample view
+
+    def enable_voxel_resample(self, voxel_size: float, cache: bool = True):
+        """Density-equalised resampling (the reference only resamples
+        uniformly with replacement, provider.py:97-98): a one-point-per-voxel
+        copy of each cloud is made once (cached next to the packed arrays)
+        and ``sample_batch`` draws uniformly from it, about uniformly over
+        the surface. A beam-model scan is quadratically denser on near
+        surfaces, which a uniform draw over-weights."""
+        views = {}
+        for k in (1, 2):
+            vpts, vcounts = self._voxel_view(k, float(voxel_size), cache)
+            offsets = np.zeros(len(vcounts) + 1, dtype=np.int64)
+            np.cumsum(vcounts, out=offsets[1:])
+            views[k] = (vpts, offsets, vcounts)
+        self._vox = views
+        self._vox_size = float(voxel_size)
+
+    def _vox_cache_files(self, k: int, voxel_size: float):
+        # the component filter rewrites the parent arrays, so its voxel
+        # view caches under a distinct stem
+        dn = getattr(self, "_denoise_tag", None)
+        suffix = f"_{dn}" if dn else ""
+        stem = os.path.join(
+            self.basepath,
+            f"packed_v{PACK_VERSION}_vox{k}_{voxel_size:g}{suffix}")
+        return f"{stem}_points.npy", f"{stem}_meta.npz"
+
+    def _load_voxel_cache(self, k, points_file, meta_file):
+        """A cached voxel view checked against the current parent arrays;
+        None when stale (the dataset was rebuilt in place)."""
+        meta = np.load(meta_file)
+        counts = meta["counts"]
+        vpts = np.load(points_file, mmap_mode="r")
+        if (len(counts) == len(getattr(self, f"counts{k}"))
+                and int(meta["parent_total"]) == len(
+                    getattr(self, f"points{k}"))
+                and int(counts.sum()) == len(vpts)):
+            return vpts, counts
+        return None
+
+    def _voxel_view(self, k: int, voxel_size: float, cache: bool,
+                    wait_timeout_s=2 * 3600):
+        points_file, meta_file = self._vox_cache_files(k, voxel_size)
+        if not cache:
+            return self._build_voxel_view(k, voxel_size, points_file=None)
+        # one builder, as for the packed cache: the meta npz is the commit
+        # marker, the others wait for it
+        lock_file = meta_file + ".lock"
+        deadline = time.time() + wait_timeout_s
+        while True:
+            if os.path.isfile(meta_file) and os.path.isfile(points_file):
+                loaded = self._load_voxel_cache(k, points_file, meta_file)
+                if loaded is not None:
+                    return loaded
+            fd = None
+            try:
+                fd = os.open(lock_file, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+                os.write(fd, str(os.getpid()).encode())
+            except FileExistsError:
+                if self._lock_stale(lock_file):
+                    try:
+                        os.remove(lock_file)
+                    except OSError:
+                        pass
+                    continue
+                if time.time() > deadline:
+                    raise TimeoutError(
+                        f"timed out waiting for voxel cache {meta_file}")
+                time.sleep(1.0)
+                continue
+            except OSError:  # unwritable dir: build without caching
+                return self._build_voxel_view(k, voxel_size,
+                                              points_file=None)
+            try:
+                if os.path.isfile(meta_file) and os.path.isfile(points_file):
+                    loaded = self._load_voxel_cache(k, points_file, meta_file)
+                    if loaded is not None:
+                        return loaded
+                vpts, counts = self._build_voxel_view(
+                    k, voxel_size, points_file=points_file)
+                self._savez_atomic(meta_file, {
+                    "counts": counts,
+                    "parent_total": np.int64(len(getattr(self,
+                                                         f"points{k}")))})
+                return vpts, counts
+            finally:
+                os.close(fd)
+                try:
+                    os.remove(lock_file)
+                except OSError:
+                    pass
+
+    def _build_voxel_view(self, k: int, voxel_size: float, points_file,
+                          chunk_points: int = 4_000_000):
+        """One representative point per occupied voxel of each cloud, in
+        chunks of whole clouds. Written straight into a memmap at
+        ``points_file`` (pid-unique temp file + rename) when given, else an
+        array in RAM."""
+        counts = np.asarray(getattr(self, f"counts{k}"))
+        offsets = np.asarray(getattr(self, f"offsets{k}"))
+        pts = getattr(self, f"points{k}")
+        kept_parts = []
+        vox_counts = np.zeros(len(counts), dtype=np.int64)
+        for start, end in self._cloud_blocks(counts, chunk_points):
+            lo, hi = int(offsets[start]), int(offsets[end])
+            if hi > lo:
+                block = np.asarray(pts[lo:hi], dtype=np.float32)
+                cid = np.repeat(np.arange(start, end, dtype=np.int64),
+                                counts[start:end])
+                first = voxel_dedup_indices(block, cid, voxel_size)
+                kept_parts.append(first.astype(np.int64) + lo)
+                vox_counts[start:end] = np.bincount(cid[first] - start,
+                                                    minlength=end - start)
+        total = int(vox_counts.sum())
+        if points_file is not None:
+            tmp = f"{points_file}.tmp.{os.getpid()}.npy"
+            out = np.lib.format.open_memmap(tmp, mode="w+", dtype=np.float32,
+                                            shape=(total, 3))
+        else:
+            out = np.empty((total, 3), dtype=np.float32)
+        pos = 0
+        for kept in kept_parts:
+            out[pos:pos + len(kept)] = pts[kept]
+            pos += len(kept)
+        if points_file is not None:
+            out.flush()
+            del out
+            os.replace(tmp, points_file)
+            out = np.load(points_file, mmap_mode="r")
+        return out, vox_counts
 
     def rows(self, file_indices):
         """Dataset file indices -> packed row numbers."""
@@ -355,12 +566,26 @@ class PackedDataset:
         b = len(rows)
         out = []
         for k in (1, 2):
-            counts = getattr(self, f"counts{k}")[rows]
-            offsets = getattr(self, f"offsets{k}")[rows]
+            if self._vox is not None:
+                # the density-equalised copy (enable_voxel_resample)
+                points, voffs, vcounts = self._vox[k]
+                counts, offsets = vcounts[rows], voffs[rows]
+            else:
+                points = getattr(self, f"points{k}")
+                counts = getattr(self, f"counts{k}")[rows]
+                offsets = getattr(self, f"offsets{k}")[rows]
             safe_counts = np.maximum(counts, 1)
             pick = (rng.random((b, num_points))
                     * safe_counts[:, None]).astype(np.int64)
-            pts = getattr(self, f"points{k}")[offsets[:, None] + pick]
+            if self._vox is not None:
+                if len(points) == 0:
+                    out.append(np.zeros((b, num_points, 3), np.float32))
+                    continue
+                # an empty cloud gathers a clamped index and is zeroed below
+                pts = np.asarray(points)[np.minimum(offsets[:, None] + pick,
+                                                    len(points) - 1)]
+            else:
+                pts = points[offsets[:, None] + pick]
             pts = np.where(counts[:, None, None] > 0, pts, 0.0)
             out.append(np.ascontiguousarray(pts, dtype=np.float32))
         labels = [np.asarray(getattr(self, name)[rows]) for name in _LABELS]

@@ -12,7 +12,12 @@ What it keeps from the reference and the JAX package:
   and on the last; resume from the rolling one with the epoch-alignment
   assert; ``training.pretraining.model`` restores all but the step and
   runs an eval tagged 'pretr';
-- JSONL scalar files train/val/val_180 with the reference's tags.
+- JSONL scalar files train/val/val_180 with the reference's tags;
+- the eval-time stack: the component filter and voxel views of the
+  dataset (data.denoise, data.resample), a gated second network pass
+  (evaluation.network_refine), gated ICP refinement with an optional
+  cascade of stages (refine_icp, evaluation.refinement*), stored
+  predictions (use_old_results) and timing mode (do_timings).
 
 In PyTorch: checkpoints are ``torch.save`` dicts of the step, the model's
 ``state_dict`` and the optimizer's, named as the JAX package's with
@@ -22,9 +27,10 @@ and dropout from another. Batches come from the ``PackedDataset`` numpy
 path behind a background prefetch thread; the per-step scalars stay on
 the device until one readback at the end of the epoch.
 
-Options the port does not run raise ``NotImplementedError`` naming their
-ROADMAP item; the mesh and ``tpu.steps_per_dispatch`` are TPU-only and
-have no counterpart here.
+Options the port does not run (data.residual_task, evaluation.special
+modes other than 'timings', tpu.profile) raise ``NotImplementedError``
+naming their ROADMAP item; the mesh and ``tpu.steps_per_dispatch`` are
+TPU-only and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -43,6 +49,11 @@ import torch
 from alignnet3d_tpu_torch.data import provider
 from alignnet3d_tpu_torch.evaluation import metrics as evaluation
 from alignnet3d_tpu_torch.evaluation.decode import decode_pair_outputs
+from alignnet3d_tpu_torch.geometry import (
+    compose_gated_refinement,
+    get_mat_angle_batch,
+)
+from alignnet3d_tpu_torch.icp.p2point import refine_predictions
 from alignnet3d_tpu_torch.models.alignnet import AlignNet, ModelSpec
 from alignnet3d_tpu_torch.models.backbones import Dropout
 from alignnet3d_tpu_torch.models.losses import LossSpec, get_loss
@@ -117,20 +128,32 @@ class ScalarWriter:
                     k: float(stacked[k][i]) for k in keys}}) + "\n")
 
 
+def cascade_stage_kwargs(base_kwargs: dict, stage: dict) -> dict:
+    """``refine_predictions`` kwargs of one cascade stage dict ({radius?,
+    method?, max_dyaw_deg?, max_dxy?}). A stage that sets its own trust
+    region turns its gate on: otherwise its max_dyaw_deg / max_dxy would
+    be dead whenever evaluation.refinement_gate is off."""
+    kwargs = dict(base_kwargs)
+    if "radius" in stage:
+        kwargs["radius"] = stage["radius"]
+    if "method" in stage:
+        kwargs["method"] = stage["method"]
+    for src, dst in (("max_dyaw_deg", "gate_max_dyaw_deg"),
+                     ("max_dxy", "gate_max_dxy")):
+        if src in stage:
+            kwargs[dst] = stage[src]
+            kwargs["gate"] = True
+    return kwargs
+
+
 def _check_ported(cfg):
     """Raise on the options this port does not run yet."""
     unported = []
-    if cfg.data.has("denoise"):
-        unported.append("data.denoise")
-    if cfg.data.has("resample") and cfg.data.resample.mode == "voxel":
-        unported.append("data.resample")
     if cfg.data.has("residual_task") and cfg.data.residual_task.enabled:
         unported.append("data.residual_task")
     ev = cfg.evaluation
-    if ev.has("network_refine") and ev.network_refine.enabled:
-        unported.append("evaluation.network_refine")
-    if ev.has("special"):
-        unported.append("evaluation.special")
+    if ev.has("special") and ev.special.mode != "timings":
+        unported.append(f"evaluation.special (mode {ev.special.mode!r})")
     if cfg.has("tpu") and cfg.tpu.has("profile"):
         unported.append("tpu.profile")
     if unported:
@@ -160,6 +183,23 @@ class Trainer:
             f"{cfg.data.basepath}/split/val.txt")
         self.num_batches_per_epoch = len(self.train_indices) // self.batch_size
         self.dataset = provider.PackedDataset(cfg.data.basepath)
+        # clutter rejection (data.denoise = {"cell": 0.5, "keep":
+        # "central"|"largest"}); it must precede the voxel view
+        if cfg.data.has("denoise"):
+            dn = cfg.data.denoise
+            self.dataset.enable_component_filter(
+                dn.cell if dn.has("cell") else 0.5,
+                dn.keep if dn.has("keep") else "central")
+        # density-equalised resampling (data.resample = {"mode": "voxel",
+        # "voxel_size": 0.05}); by default the reference's uniform
+        # resample-with-replacement (provider.py:97-98)
+        if cfg.data.has("resample") and cfg.data.resample.mode == "voxel":
+            rs = cfg.data.resample
+            self.dataset.enable_voxel_resample(
+                rs.voxel_size if rs.has("voxel_size") else 0.05)
+        self._refine_model = None  # (weights path, model) of network_refine
+        # seconds of the last eval's stages: network refine, ICP per stage
+        self.eval_times: dict = {}
         self._data_rng = np.random.default_rng(seed + 1)
         self._jitter_gen = torch.Generator(self.device).manual_seed(seed + 2)
         dropout_gen = torch.Generator(self.device).manual_seed(seed + 3)
@@ -229,12 +269,14 @@ class Trainer:
                 **{k: v.detach() for k, v in aux.items()}}
 
     @torch.no_grad()
-    def eval_step(self, batch):
-        """(loss, end_points as numpy) of the eval-mode model."""
+    def eval_step(self, batch, model=None):
+        """(loss, end_points as numpy) of the eval-mode model (by default
+        the trained one)."""
         pcs1, pcs2, translations, rel_angles, c1, c2, a1, a2 = \
             self._to_device(batch)
-        self.model.eval()
-        out = self.model(pcs1, pcs2)
+        model = self.model if model is None else model
+        model.eval()
+        out = model(pcs1, pcs2)
         loss, _ = get_loss(pcs1, pcs2, translations, rel_angles, c1, c2, a1,
                            a2, out, spec=self.loss_spec)
         return float(loss), {k: v.cpu().numpy() for k, v in out.items()}
@@ -318,13 +360,138 @@ class Trainer:
         logger.info("train mean loss: %f"
                     % (float(loss_vals.sum()) / num_batches))
 
+    def _refine_weights_model(self, weights: str):
+        """The model of a network_refine ``weights`` checkpoint (a path
+        without ``.pt``, as training.pretraining.model), cached: during
+        training the pass runs every eval epoch."""
+        if self._refine_model is None or self._refine_model[0] != weights:
+            model = AlignNet(self.spec).to(self.device)
+            ckpt = torch.load(weights + ".pt", map_location=self.device,
+                              weights_only=True)
+            model.load_state_dict(ckpt["model"])
+            self._refine_model = (weights, model)
+        return self._refine_model[1]
+
+    def _network_refine_pass(self, P, val_idxs, batch_size, residual_scale,
+                             net_ref, resolve_flips: bool = True,
+                             iteration: int = 0):
+        """Second forward pass on the coarsely aligned pair
+        (evaluation.network_refine): move pc1 by the first pass's composed
+        transform M1, predict again, compose dM @ M1, and accept the update
+        per pair only inside the trust region (|da| <= gate max_dyaw_deg,
+        default 2.0; |dxy| <= max_dxy, default 0.15 m): an out-of-basin
+        second pass must not throw away a good init.
+
+        Rewrites P's final transform in the world frame (rotation centre
+        zero, as ICP refinement, reference train.py:483-484); the s1/s2
+        diagnostic arrays keep the first pass's values. An optional
+        ``weights`` key names a checkpoint whose model runs this pass."""
+        n = len(val_idxs)
+        nb = self.spec.num_bins
+        gate = net_ref.gate if net_ref.has("gate") else None
+        gate_deg = (gate.max_dyaw_deg
+                    if gate is not None and gate.has("max_dyaw_deg") else 2.0)
+        gate_xy = (gate.max_dxy
+                   if gate is not None and gate.has("max_dxy") else 0.15)
+        model = (self._refine_weights_model(net_ref.weights)
+                 if net_ref.has("weights") and net_ref.weights else None)
+        M1 = get_mat_angle_batch(P["pred_translations"],
+                                 P["pred_angles"][:, 0],
+                                 P["pred_s2_pc1centers"])
+        # a fixed stream per pass (pass 1 of the eval loop draws from (2))
+        rng = self._epoch_rng(2, 1 + iteration)
+        t2 = np.empty((n, 3), np.float32)
+        a2 = np.empty(n, np.float64)
+        c2 = np.empty((n, 3), np.float32)
+        for s in range(0, n, batch_size):
+            e = min(s + batch_size, n)
+            take = val_idxs[s:e] + [val_idxs[0]] * (batch_size - (e - s))
+            batch = self._make_batch(take, rng=rng)
+            Mb = M1[s:e]
+            if batch_size > e - s:  # the padded tail moves by identity
+                Mb = np.concatenate(
+                    [Mb, np.tile(np.eye(4), (batch_size - (e - s), 1, 1))])
+            pc1 = (np.einsum("bij,bnj->bni",
+                             Mb[:, :3, :3].astype(np.float32), batch[0])
+                   + Mb[:, None, :3, 3].astype(np.float32))
+            # empty clouds stay zero (reference provider.py:95-96)
+            empty = ~np.any(batch[0] != 0.0, axis=(1, 2))
+            pc1[empty] = 0.0
+            pc1 = pc1.astype(np.float32)
+            _, out = self.eval_step((pc1,) + tuple(batch[1:]), model)
+            # the decode policy of pass 1: mixing policies would let the
+            # mod-pi gate accept pi-sized "corrections"
+            dec = decode_pair_outputs(out, pc1, batch[1], nb, residual_scale,
+                                      resolve_flips=resolve_flips, n=e - s,
+                                      device=self.device)
+            t2[s:e] = dec.translations
+            a2[s:e] = dec.angles
+            c2[s:e] = dec.s2_pc1centers
+        M, ok = compose_gated_refinement(M1, t2, a2, c2, gate_deg, gate_xy)
+        logger.info(f"network refine: accepted {int(ok.sum())}/{n} "
+                    f"(gate {gate_deg} deg / {gate_xy} m)")
+        P["pred_translations"] = M[:, :3, 3].astype(np.float32)
+        P["pred_angles"] = np.arctan2(M[:, 1, 0], M[:, 0, 0]).astype(
+            np.float32).reshape(n, 1)
+        P["pred_s2_pc1centers"] = np.zeros((n, 3), np.float32)
+        return P
+
+    def _refine_icp(self, P, val_idxs, icp_its: int, icp_method: str):
+        """Gated ICP refinement of P's final transforms, in one or more
+        cascade stages (evaluation.refinement.cascade: a list of {radius?,
+        its?, method?, max_dyaw_deg?, max_dxy?}); each stage starts from
+        the previous stage's world-frame output. Returns the ICP seconds."""
+        ev = self.cfg.evaluation
+        gate_cfg = ev.refinement_gate if ev.has("refinement_gate") else None
+        base = {}
+        if gate_cfg is not None and gate_cfg.enabled:
+            base["gate"] = True
+            if gate_cfg.has("max_dyaw_deg"):
+                base["gate_max_dyaw_deg"] = gate_cfg.max_dyaw_deg
+            if gate_cfg.has("max_dxy"):
+                base["gate_max_dxy"] = gate_cfg.max_dxy
+        # the reference hardwires radius=0.1 (train.py:469)
+        ref_cfg = ev.refinement if ev.has("refinement") else None
+        if ref_cfg is not None and ref_cfg.has("radius"):
+            base["radius"] = ref_cfg.radius
+        base["method"] = icp_method
+        stages = (ref_cfg.cascade
+                  if ref_cfg is not None and ref_cfg.has("cascade") else None)
+        cur_t = P["pred_translations"]
+        cur_a = P["pred_angles"]
+        cur_c = P["pred_s2_pc1centers"]
+        times = []
+        for stage in stages or [{}]:
+            refined, elapsed = refine_predictions(
+                self.cfg, val_idxs, cur_t, cur_a, cur_c,
+                its=int(stage.get("its", icp_its)), dataset=self.dataset,
+                device=self.device, **cascade_stage_kwargs(base, stage))
+            cur_t, cur_a = refined["translations"], refined["angles"]
+            # ICP transforms are world-frame: the rotation centre resets to
+            # the origin (reference train.py:483-484)
+            cur_c = np.zeros_like(cur_c)
+            times.append(elapsed)
+        P["pred_translations"] = cur_t
+        P["pred_angles"] = cur_a
+        P["pred_s2_pc1centers"] = cur_c
+        self.eval_times["icp_stages"] = times
+        return sum(times)
+
     def eval_one_epoch(self, epoch, eval_only: bool,
+                       do_timings: bool = False, override_batch_size=None,
+                       refine_icp: bool = False, icp_its: int = 30,
+                       icp_method: str = "p2p",
+                       use_old_results: bool = False,
                        val_writer: ScalarWriter | None = None,
                        val_writer_180: ScalarWriter | None = None) -> float:
-        """Network-only eval of the full val set, both eval files and the
-        prediction arrays (reference train.py:386-545)."""
+        """Eval of the full val set, both eval files and the prediction
+        arrays (reference train.py:386-545), then the optional second
+        network pass and ICP refinement. ``use_old_results`` reads the
+        final transforms of an earlier eval of this epoch instead of
+        running the network; ``do_timings`` prints the mean time a pair
+        and writes no eval files."""
         cfg = self.cfg
-        batch_size = self.batch_size
+        batch_size = override_batch_size or self.batch_size
         val_idxs = list(self.val_indices)
         n_val = len(val_idxs)
         num_batches = int(np.ceil(n_val / batch_size))
@@ -332,7 +499,16 @@ class Trainer:
         # one fixed stream: a checkpoint gives the same predictions in any
         # eval, and val curves carry no resampling noise
         eval_rng = self._epoch_rng(2)
+        # the refinement method: the caller's, unless the config names one
+        if cfg.evaluation.has("refinement") and \
+                cfg.evaluation.refinement.has("method"):
+            icp_method = cfg.evaluation.refinement.method
         eval_dir = f"{self.logdir}/val/eval{str(epoch).zfill(6)}"
+        base_eval_dir = eval_dir
+        if refine_icp:
+            suffix = f"_{icp_its}" if icp_its != 30 else ""
+            eval_dir = f"{eval_dir}/refined_{icp_method}{suffix}"
+        self.eval_times = {}
         if os.path.isdir(eval_dir):
             backup = f"{eval_dir}_backup_{int(time.time())}"
             k = 0
@@ -350,6 +526,12 @@ class Trainer:
         G = {"gt_translations": np.empty((n_val, 3), np.float32),
              "gt_angles": np.empty((n_val, 1), np.float32),
              "gt_pc1centers": np.empty((n_val, 3), np.float32)}
+        if use_old_results:
+            # the final transform only; the other five arrays stay unset,
+            # as in the JAX package
+            for key in ("pred_translations", "pred_angles",
+                        "pred_s2_pc1centers"):
+                P[key] = np.load(f"{base_eval_dir}/{key}.npy")
         nb = self.spec.num_bins
         # the reference decodes the residuals unscaled (tp8.py:241-244);
         # evaluation.scale_residuals opts into the consistent decode
@@ -367,34 +549,55 @@ class Trainer:
             # pad to a full batch (the reference feeds a stale tail)
             padded = val_idxs[start:end] + [val_idxs[0]] * (batch_size - actual)
             batch = self._make_batch(padded, rng=eval_rng)
-            t0 = time.time()
-            loss_val, out = self.eval_step(batch)
-            cumulated_times += time.time() - t0
-            if actual == batch_size:
-                loss_sum += loss_val
-            t0 = time.time()
-            dec = decode_pair_outputs(out, batch[0], batch[1], nb,
-                                      residual_scale,
-                                      resolve_flips=resolve_flips, n=actual,
-                                      device=self.device)
-            if resolve_flips:
+            if not use_old_results:
+                t0 = time.time()
+                loss_val, out = self.eval_step(batch)
                 cumulated_times += time.time() - t0
-            P["pred_translations"][start:end] = dec.translations
-            P["pred_angles"][start:end, 0] = dec.angles
-            for key in ("pred_s1_pc1centers", "pred_s1_pc2centers",
-                        "pred_s2_pc1centers", "pred_s2_pc2centers"):
-                P[key][start:end] = out[key][:actual]
-            P["pred_s2_pc1angles"][start:end, 0] = dec.ang1
-            P["pred_s2_pc2angles"][start:end, 0] = dec.ang2
+                if actual == batch_size:
+                    loss_sum += loss_val
+                t0 = time.time()
+                dec = decode_pair_outputs(out, batch[0], batch[1], nb,
+                                          residual_scale,
+                                          resolve_flips=resolve_flips,
+                                          n=actual, device=self.device)
+                if resolve_flips:
+                    cumulated_times += time.time() - t0
+                P["pred_translations"][start:end] = dec.translations
+                P["pred_angles"][start:end, 0] = dec.angles
+                for key in ("pred_s1_pc1centers", "pred_s1_pc2centers",
+                            "pred_s2_pc1centers", "pred_s2_pc2centers"):
+                    P[key][start:end] = out[key][:actual]
+                P["pred_s2_pc1angles"][start:end, 0] = dec.ang1
+                P["pred_s2_pc2angles"][start:end, 0] = dec.ang2
             G["gt_translations"][start:end] = batch[2][:actual]
             G["gt_angles"][start:end] = batch[3][:actual]
             G["gt_pc1centers"][start:end] = batch[4][:actual]
 
+        net_ref = (cfg.evaluation.network_refine
+                   if cfg.evaluation.has("network_refine") else None)
+        if (net_ref is not None and net_ref.enabled and not use_old_results
+                and not do_timings):
+            # iterations > 1 compose from the GATED chain each pass (P is
+            # rewritten in place), so deeper passes stay frame-consistent
+            t0 = time.time()
+            for itn in range(int(net_ref.iterations)
+                             if net_ref.has("iterations") else 1):
+                P = self._network_refine_pass(
+                    P, val_idxs, batch_size, residual_scale, net_ref,
+                    resolve_flips=resolve_flips, iteration=itn)
+            self.eval_times["network_refine"] = time.time() - t0
+            cumulated_times += self.eval_times["network_refine"]
+        if refine_icp:
+            cumulated_times += self._refine_icp(P, val_idxs, icp_its,
+                                                icp_method)
+
         mean_loss = loss_sum / num_full_batches if num_full_batches else 0.0
         mean_time = cumulated_times / float(n_val)
+        if do_timings:
+            print(f"Timing bs={batch_size}: {mean_time}")
         metas = self.dataset.metas(val_idxs)
-        for accept_inverted, writer in ((False, val_writer),
-                                        (True, val_writer_180)):
+        for accept_inverted, writer in (() if do_timings else (
+                (False, val_writer), (True, val_writer_180))):
             ev = evaluation.evaluate(
                 cfg, val_idxs, P["pred_translations"], P["pred_angles"],
                 G["gt_translations"], G["gt_angles"],
@@ -437,15 +640,14 @@ class Trainer:
     # --------------------------------------------------------- entry point
 
     def train(self, eval_only: bool = False, eval_epoch=None,
-              refine_icp: bool = False, use_old_results: bool = False,
-              do_timings: bool = False, eval_only_model_to_load=None):
-        """Main entry (reference train.py:187-332)."""
-        for flag, name in ((refine_icp, "refine_icp (ICP in eval)"),
-                           (use_old_results, "use_old_results"),
-                           (do_timings, "do_timings")):
-            if flag:
-                raise NotImplementedError(f"{name}: not ported yet "
-                                          f"({_ROADMAP})")
+              refine_icp: bool = False, icp_its: int = 30,
+              icp_method: str = "p2p", use_old_results: bool = False,
+              do_timings: bool = False, override_batch_size=None,
+              eval_only_model_to_load=None):
+        """Main entry (reference train.py:187-332). Under
+        ``use_old_results`` and ``do_timings`` an eval-only run restores no
+        checkpoint; ``do_timings`` runs 10 timed evals an epoch at
+        ``override_batch_size``."""
         cfg = self.cfg
         setup_logging(self.logdir)
         from alignnet3d_tpu_torch.config import save_config
@@ -465,10 +667,11 @@ class Trainer:
         nbpe = self.num_batches_per_epoch
         if eval_only:
             model_dir = eval_only_model_to_load or self.logdir
-            path = os.path.join(model_dir, f"model-{eval_epoch}.pt")
-            self.restore_checkpoint(path)
-            if eval_only_model_to_load is None and nbpe:
-                if (self.step % nbpe != 0
+            if not use_old_results and not do_timings:
+                path = os.path.join(model_dir, f"model-{eval_epoch}.pt")
+                self.restore_checkpoint(path)
+                if eval_only_model_to_load is None and nbpe and (
+                        self.step % nbpe != 0
                         or self.step // nbpe - 1 != int(eval_epoch)):
                     raise ValueError(f"checkpoint step {self.step} is not the "
                                      f"end of epoch {eval_epoch}")
@@ -505,10 +708,17 @@ class Trainer:
             if not eval_only:
                 self.train_one_epoch(epoch, train_writer)
             was_last = epoch == cfg.training.num_epochs - 1
-            if eval_only or was_last or epoch % eval_every == 0:
-                self.eval_one_epoch(epoch, eval_only=eval_only,
-                                    val_writer=val_writer,
-                                    val_writer_180=val_writer_180)
+            if do_timings:
+                for _ in range(10):
+                    self.eval_one_epoch(
+                        epoch, eval_only=eval_only, do_timings=True,
+                        override_batch_size=override_batch_size)
+            elif eval_only or was_last or epoch % eval_every == 0:
+                self.eval_one_epoch(
+                    epoch, eval_only=eval_only, refine_icp=refine_icp,
+                    icp_its=icp_its, icp_method=icp_method,
+                    use_old_results=use_old_results, val_writer=val_writer,
+                    val_writer_180=val_writer_180)
             if eval_only:
                 break
             if epoch % 2 == 0 or was_last:

@@ -29,7 +29,13 @@ From the root of a checkout, with nothing built beforehand:
    step with the unfused path's from the same weights and batch, the edge
    layers also under the same cotangent;
 9. trains one epoch of the PointNet of ``configs/SynthCars.json``;
-10. prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
+10. the eval-time stack through ``alignnet3d_tpu_torch.cli``: trains one
+    epoch of ``configs/SynthCars80kFullStack.json`` (voxel view, network
+    refine in the eval), runs ``eval_only --refineICP`` with it (gated
+    p2plane ICP) and with ``configs/SynthCars80kNetRefineCascade.json``
+    (a gated 2-stage p2p cascade), counting launches, and holds ICP from
+    perturbed ground truth on the card against the CPU;
+11. prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
 
 Any failed phase exits non-zero without the last line. So does a machine
 without a CUDA card.
@@ -55,6 +61,8 @@ ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "SynthCars.json"
 DGCNN_CONFIG = ROOT / "configs" / "SynthCars40kDGCNN.json"
 TRAIN_CONFIG = ROOT / "configs" / "SynthCars40kDGCNNFusedR4.json"
+FULLSTACK_CONFIG = ROOT / "configs" / "SynthCars80kFullStack.json"
+CASCADE_CONFIG = ROOT / "configs" / "SynthCars80kNetRefineCascade.json"
 DATA_SHARDS = 8            # worker processes of the dataset generator
 SHARD_TRAIN, SHARD_VAL = 48, 16   # pairs per shard: 384 train, 128 val
 SEED = 0
@@ -90,6 +98,8 @@ SENS_SHARE = 0.10
 ICP_ITS = 30             # Aligner.align's default ICP iterations
 ICP_TOL = (0.01, 0.1)    # m, degrees
 ICP_AGREE = 0.95         # share of ICP pairs within ICP_TOL
+REFINE_PERTURB = (3.0, 0.10)  # deg, m: the ICP check's inits off the truth
+REFINE_CPU_PAIRS = 32    # of the PAIRS val pairs, also refined on the CPU
 TRAIN_TOL = 1e-4         # edge-train kernel vs twin: out and stats (rtol;
 TRAIN_ATOL = 1e-5        # atol); each gradient's relative L2 error from
 #                          float64 on the kernel's own branch (its relu
@@ -1095,6 +1105,182 @@ def pointnet_training_phase(basepath: str, workdir: str):
           f"device memory {peak / 2**30:.2f} GiB")
 
 
+def _refine_config(path: Path, basepath: str, basedir: str, name: str) -> str:
+    """The config at ``path`` as ``basedir/name.json``: the generated
+    dataset, one epoch, log directory ``basedir/name``."""
+    with open(path) as f:
+        d = json.load(f)
+    d["data"]["basepath"] = basepath
+    d["logging"] = {"basedir": basedir}
+    d["training"]["num_epochs"] = 1
+    out = os.path.join(basedir, f"{name}.json")
+    with open(out, "w") as f:
+        json.dump(d, f)
+    return out
+
+
+def _refine_eval(cli, config: str, logdir: str, method: str, stages):
+    """``eval_only --refineICP`` of epoch 0 through the CLI on the card, the
+    launch counts set to 0 just before and read just after. Checks the
+    eval files and nn_argmin's launches: 2 flip sweeps per eval batch in
+    each of the two network passes, and per gated ICP stage and chunk of
+    PAIRS pairs its iterations + 1 (fitness) + 1 (the gate's score)."""
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    trainer = cli.main(["eval_only", "--config", config, "--refineICP",
+                        "--eval_epoch", "0", "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    ev = os.path.join(logdir, "val", "eval000000", f"refined_{method}")
+    names = ["eval.json", "eval_180.json"] + [f"pred_{k}.npy" for k in (
+        "translations", "angles", "s1_pc1centers", "s1_pc2centers",
+        "s2_pc1centers", "s2_pc2centers", "s2_pc1angles", "s2_pc2angles")]
+    for name in names:
+        check(os.path.isfile(os.path.join(ev, name)),
+              f"{config}: no refined_{method}/{name}")
+    for name in names[2:]:
+        arr = np.load(os.path.join(ev, name))
+        check(arr.shape[0] == PAIRS and np.isfinite(arr).all(),
+              f"{config}: refined_{method}/{name} is not finite")
+    n_val = len(trainer.val_indices)
+    batches = -(-n_val // trainer.batch_size)
+    chunks = -(-n_val // PAIRS)
+    expected = 2 * 2 * batches + sum((its + 2) * chunks for its in stages)
+    with open(os.path.join(ev, "eval.json")) as f:
+        levels = json.load(f)["corr_levels"]
+    times = trainer.eval_times
+    print(f"{Path(config).stem} eval_only --refineICP ({method}, stages of "
+          f"{list(stages)} iterations) over {n_val} val pairs: "
+          f"{wall:.2f} s wall (load, network, refine, files); network refine "
+          f"{times['network_refine']:.3f} s, ICP per stage "
+          f"{[round(s, 3) for s in times['icp_stages']]} s; corr_levels "
+          f"{levels}; kernel launches {counts}")
+    check(counts["nn_argmin"] == expected,
+          f"{config}: nn_argmin {counts['nn_argmin']} launches, expected "
+          f"{expected}")
+    return counts["nn_argmin"]
+
+
+def _pose_errors(t, a, world_t, gt_a):
+    """World-frame translation error (m) and yaw error (deg) per pair."""
+    return (np.linalg.norm(t - world_t, axis=1),
+            np.degrees(_angle_gap(np.asarray(a).reshape(-1), gt_a)))
+
+
+def refinement_phase(basepath: str, workdir: str):
+    """The eval-time stack at full width: (a) one epoch (3 steps + the
+    eval with the second network pass) of the PointNet of
+    ``configs/SynthCars80kFullStack.json`` with its voxel view, through the
+    CLI; (b) ``eval_only --refineICP`` of those weights with that config
+    (network refine, gated p2plane ICP) and with
+    ``configs/SynthCars80kNetRefineCascade.json`` (network refine, a
+    2-stage gated p2p cascade), counting launches; (c) ICP from the ground
+    truth perturbed by up to REFINE_PERTURB, both methods, gate on: all
+    PAIRS val pairs on the card, REFINE_CPU_PAIRS of them on the CPU.
+    Returns the nn_argmin launches of (b)."""
+    from alignnet3d_tpu_torch import cli
+    from alignnet3d_tpu_torch.data.provider import PackedDataset, getDataFiles
+    from alignnet3d_tpu_torch.geometry import (
+        translate_transform_to_new_center_of_rotation,
+    )
+    from alignnet3d_tpu_torch.icp import (
+        estimate_normals_batch,
+        refine_predictions,
+    )
+    from alignnet3d_tpu_torch.icp.p2point import pad_full_clouds
+
+    t_phase = time.perf_counter()
+    basedir = os.path.join(workdir, "refine")
+    os.makedirs(basedir)
+    full = _refine_config(FULLSTACK_CONFIG, basepath, basedir, "fullstack")
+    cascade = _refine_config(CASCADE_CONFIG, basepath, basedir, "cascade")
+    t0 = time.perf_counter()
+    trainer = cli.main(["train", "--config", full, "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    print(f"FullStack training through the CLI, 1 epoch (3 steps of {PAIRS} "
+          f"pairs + eval of {PAIRS} with network refine): "
+          f"{time.perf_counter() - t0:.1f} s")
+    _check_trained(os.path.join(basedir, "fullstack"), "FullStack")
+    check(trainer.dataset._vox_size == 0.05, "FullStack: no voxel view")
+    # the cascade evaluates the same weights: the two configs share a model
+    os.makedirs(os.path.join(basedir, "cascade"))
+    shutil.copy(os.path.join(basedir, "fullstack", "model-0.pt"),
+                os.path.join(basedir, "cascade", "model-0.pt"))
+    launches = _refine_eval(cli, full, os.path.join(basedir, "fullstack"),
+                            "p2plane", [30])
+    launches += _refine_eval(cli, cascade, os.path.join(basedir, "cascade"),
+                             "p2p", [30, 20])
+
+    ds = PackedDataset(basepath)
+    val = getDataFiles(f"{basepath}/split/val.txt")[:PAIRS]
+    rows = ds.rows(val)
+    rng = np.random.default_rng(SEED + 11)
+    n = len(val)
+    gt_t = ds.translations[rows].reshape(n, 3)
+    gt_a = ds.rel_angles[rows].reshape(n)
+    gt_c = ds.pc1centers[rows].reshape(n, 3)
+    pred_t = (gt_t + rng.uniform(-1, 1, (n, 3)) * [1, 1, 0]
+              * REFINE_PERTURB[1]).astype(np.float32)
+    pred_a = (gt_a + np.deg2rad(rng.uniform(-1, 1, n) * REFINE_PERTURB[0])
+              ).astype(np.float32).reshape(n, 1)
+    pred_c = gt_c.astype(np.float32)
+    zero = np.zeros_like(gt_c)
+    world = translate_transform_to_new_center_of_rotation(gt_t, gt_a, gt_c,
+                                                          zero)
+    init_err = _pose_errors(translate_transform_to_new_center_of_rotation(
+        pred_t, pred_a, gt_c, zero), pred_a, world, gt_a)
+    _, (dst, dst_mask) = pad_full_clouds(ds, val)
+    normals_ms = cuda_ms(lambda: estimate_normals_batch(
+        dst, dst_mask, device="cuda"), iters=3, warmup=1)
+    print(f"p2plane normals (k=16) of {n} clouds padded to {dst.shape[1]} "
+          f"points: {normals_ms:.2f} ms (CUDA events, host inputs)")
+    m = REFINE_CPU_PAIRS
+    # both sides refine in chunks of m pairs: pad_full_clouds subsamples a
+    # cloud above 4096 points from one generator per chunk, in pair order,
+    # so the card's first chunk and the CPU's one chunk draw the same
+    # subsamples only when the chunks are the same pairs; and both pad to
+    # one length
+    pad = pad_full_clouds(ds, val[:m])[1][0].shape[1]
+    check(pad == dst.shape[1], f"the first {m} pairs pad to {pad} points, "
+          f"all {n} to {dst.shape[1]}: the card and the CPU would see other "
+          f"clouds")
+    for method in ("p2p", "p2plane"):
+        kwargs = dict(its=ICP_ITS, radius=0.1, dataset=ds, gate=True,
+                      method=method, pair_chunk=m)
+        gpu, gpu_s = refine_predictions(None, val, pred_t, pred_a, pred_c,
+                                        device="cuda", **kwargs)
+        t0 = time.perf_counter()
+        cpu, _ = refine_predictions(None, val[:m], pred_t[:m], pred_a[:m],
+                                    pred_c[:m], device="cpu", **kwargs)
+        cpu_s = time.perf_counter() - t0
+        dt = np.linalg.norm(gpu["translations"][:m] - cpu["translations"],
+                            axis=1)
+        da = np.degrees(_angle_gap(gpu["angles"][:m, 0], cpu["angles"][:, 0]))
+        agree = (dt <= ICP_TOL[0]) & (da <= ICP_TOL[1])
+        err = _pose_errors(gpu["translations"], gpu["angles"], world, gt_a)
+        print(f"ICP {method} from the truth perturbed by up to "
+              f"{REFINE_PERTURB[0]} deg / {REFINE_PERTURB[1]} m, gate on, "
+              f"{ICP_ITS} its at radius 0.1: card {n} pairs in {gpu_s:.3f} s "
+              f"(accepted {int(gpu['accepted'].sum())}), CPU {m} pairs in "
+              f"{cpu_s:.1f} s; card vs CPU within {ICP_TOL[0]} m and "
+              f"{ICP_TOL[1]} deg: {agree.mean():.1%}, gate decisions equal "
+              f"{(gpu['accepted'][:m] == cpu['accepted']).mean():.1%}; "
+              f"median error init {np.median(init_err[0]):.4f} m "
+              f"{np.median(init_err[1]):.3f} deg, refined "
+              f"{np.median(err[0]):.4f} m {np.median(err[1]):.3f} deg")
+        check(agree.mean() >= ICP_AGREE,
+              f"ICP {method}: card and CPU answers disagree")
+        check(np.median(err[0]) < np.median(init_err[0])
+              and np.median(err[1]) < np.median(init_err[1]),
+              f"ICP {method}: the refined median error is not below the "
+              f"init's")
+    print(f"refinement phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _wrappers():
     from alignnet3d_tpu_torch.ops import edge_conv_kernels as ek
     from alignnet3d_tpu_torch.ops import edge_train_kernels as et
@@ -1346,6 +1532,9 @@ def main() -> int:
         counts = dgcnn_training_phase(basepath, workdir)
         launches["fused_edge_stage_train"] = counts["fused_edge_stage_train"]
         pointnet_training_phase(basepath, workdir)
+        # nn_argmin's launches: the PointNet serving path's and the
+        # refinement path's
+        launches["nn_argmin"] += refinement_phase(basepath, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

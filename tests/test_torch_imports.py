@@ -107,7 +107,9 @@ def test_the_training_slice_is_among_the_modules():
             "alignnet3d_tpu_torch.models.losses",
             "alignnet3d_tpu_torch.ops.stable_max",
             "alignnet3d_tpu_torch.ops.edge_train_kernels",
-            "alignnet3d_tpu_torch.evaluation.metrics"} <= names
+            "alignnet3d_tpu_torch.evaluation.metrics",
+            "alignnet3d_tpu_torch.cli",
+            "alignnet3d_tpu_torch.icp.p2plane"} <= names
 
 
 def test_kernel_bench_and_its_imports_load_with_the_jax_package_blocked():

@@ -88,11 +88,9 @@ def test_sample_batch_is_bit_equal_to_the_jax_numpy_path(datasets, tmp_path,
 
 
 def test_unported_provider_paths_raise(datasets):
+    """The native assembler is the one path left (the two views are held
+    to the JAX package in tests/test_torch_views.py)."""
     td = tp.PackedDataset(datasets["port"], cache=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        td.enable_component_filter()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        td.enable_voxel_resample(0.05)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         td.sample_batch([0], 8, np.random.default_rng(0), use_native=True)
 

@@ -1,7 +1,9 @@
 """The port's ``Trainer`` on the CPU: two epochs on a fixture dataset write
 the JAX package's artifacts (checkpoints as ``.pt``), a second ``train()``
 resumes from the rolling checkpoint, pretrained weights and eval-only runs
-restore, and every option the port does not run raises naming ROADMAP."""
+restore, and every option the port does not run raises naming ROADMAP (the
+eval-time stack is held to the JAX package in
+tests/test_torch_eval_stack.py)."""
 
 import json
 import os
@@ -131,24 +133,13 @@ def test_eval_only_and_pretrained_restore(dataset, tmp_path):
 
 
 @pytest.mark.parametrize("path,value", [
-    ("data.denoise", {"cell": 0.5}),
-    ("data.resample", {"mode": "voxel"}),
     ("data.residual_task", {"enabled": True}),
-    ("evaluation.network_refine", {"enabled": True}),
     ("evaluation.special", {"mode": "held"}),
     ("tpu.profile", {"dir": "prof", "steps": 2}),
 ])
 def test_unported_config_options_raise(dataset, tmp_path, path, value):
     with pytest.raises(NotImplementedError, match=f"{path}.*ROADMAP"):
         Trainer(_cfg(dataset, tmp_path, **{path: value}), device="cpu")
-
-
-@pytest.mark.parametrize("flag", ["refine_icp", "use_old_results",
-                                  "do_timings"])
-def test_unported_train_flags_raise(dataset, tmp_path, flag):
-    trainer = Trainer(_cfg(dataset, tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.train(**{flag: True})
 
 
 def test_momentum_optimizer_and_device_argument(dataset, tmp_path):
