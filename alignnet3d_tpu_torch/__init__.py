@@ -4,17 +4,19 @@ The JAX package ``alignnet3d_tpu`` is the reference; this package holds
 its PyTorch counterparts, module for module (``ops/``, ``models/``,
 ``icp/``, ``evaluation/``, ``serving.py``, ``api.py``), and its own copies
 of the numpy host code it needs (``config.py``, ``geometry.py``,
-``data/``). It imports nothing of the JAX package, and never jax, flax or
-optax.
+``data/``). It imports nothing of the JAX package, and never jax, flax,
+optax or msgpack: ``checkpoint.py`` reads and writes the JAX package's
+flax checkpoints itself.
 
 Every kernel the JAX package wrote in Pallas for the TPU is a CUDA C++
 kernel for Hopper (sm_90a) under ``csrc/``, built with ``nvcc`` at first
 use (``ops/_build.py``). Each has a plain PyTorch twin in the same module:
 a CPU tensor goes through the twin, a CUDA tensor through the kernel.
 
-Ported so far: the serving path of the PointNet and the DGCNN models,
-i.e. ``api.Aligner.align`` with the BN-folded forward, flip resolution,
-gated network refinement and constrained point-to-point ICP.
+Ported so far: the serving path of the PointNet and the DGCNN models
+(``api.Aligner``), their training path (``training/trainer.py``), the
+eval-time refinement stack with the CLI, the residual-alignment task and
+checkpoints of both packages (``checkpoint.py``).
 """
 
 __version__ = "0.1.0"

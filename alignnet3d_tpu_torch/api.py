@@ -5,6 +5,9 @@ Counterpart of ``alignnet3d_tpu/api.py``:
     from alignnet3d_tpu_torch.api import Aligner
 
     aligner = Aligner(spec, state_dict, device="cuda")
+    # or a run of either package: config.json + model-*.pt or .msgpack
+    aligner = Aligner.from_checkpoint("runs/X/config.json",
+                                      "runs/X/model-59.msgpack")
     result = aligner.align(list_of_pc1, list_of_pc2, refine_icp=True)
     result["translations"], result["angles"], result["centers"]
 
@@ -20,11 +23,14 @@ gated network refinement and constrained ICP run on the same device.
 
 from __future__ import annotations
 
+import json
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from alignnet3d_tpu_torch import checkpoint
+from alignnet3d_tpu_torch.config import config_from_dict
 from alignnet3d_tpu_torch.data.denoise import component_filter_indices
 from alignnet3d_tpu_torch.data.provider import voxel_dedup_indices
 from alignnet3d_tpu_torch.evaluation.decode import decode_pair_outputs
@@ -60,6 +66,35 @@ class Aligner:
         self._forward = build_inference_fn(spec, state_dict, spec.dtype,
                                            device=self.device)
         self._alt_forwards: dict = {}
+
+    @classmethod
+    def from_checkpoint(cls, config_path: str, checkpoint_path: str,
+                        device: torch.device | str = "cuda",
+                        **kwargs) -> "Aligner":
+        """Load a run's ``config.json`` and a ``model-*.pt`` (the port's)
+        or ``model-*.msgpack`` (the JAX package's: full ``TrainState`` or
+        bare variables), told apart by the suffix. As the JAX
+        ``Aligner.from_checkpoint``, it takes ``evaluation.scale_residuals``
+        and, unless ``kwargs`` set them, the voxel resampling
+        (``data.resample.mode == "voxel"``) and the component filter
+        (``data.denoise``) of the training data from the config."""
+        with open(config_path) as f:
+            cfg = config_from_dict(json.load(f))
+        spec = ModelSpec.from_config(cfg)
+        state_dict = checkpoint.state_dict_from_file(checkpoint_path)
+        scale = bool(cfg.evaluation.has("scale_residuals")
+                     and cfg.evaluation.scale_residuals)
+        if ("voxel_resample" not in kwargs and cfg.data.has("resample")
+                and cfg.data.resample.mode == "voxel"):
+            rs = cfg.data.resample
+            kwargs["voxel_resample"] = (rs.voxel_size
+                                        if rs.has("voxel_size") else 0.05)
+        if "denoise" not in kwargs and cfg.data.has("denoise"):
+            dn = cfg.data.denoise
+            kwargs["denoise"] = (dn.cell if dn.has("cell") else 0.5,
+                                 dn.keep if dn.has("keep") else "central")
+        return cls(spec, state_dict, scale_residuals=scale, device=device,
+                   **kwargs)
 
     def _forward_for(self, state_dict):
         """Folded forward for an alternate weight set (e.g. a residual

@@ -88,6 +88,16 @@ def get_mat_angle_batch(translation, rotation, rotation_center) -> np.ndarray:
     return M
 
 
+def invert_rigid_batch(M: np.ndarray) -> np.ndarray:
+    """Inverse of a batch of rigid 4x4 transforms: [[R.T, -R.T t], [0, 1]]."""
+    R = M[..., :3, :3]
+    out = np.tile(np.eye(4), M.shape[:-2] + (1, 1))
+    Rt = np.swapaxes(R, -1, -2)
+    out[..., :3, :3] = Rt
+    out[..., :3, 3] = -np.einsum("...ij,...j->...i", Rt, M[..., :3, 3])
+    return out
+
+
 def compose_gated_refinement(M1, t2, a2, c2, gate_deg: float,
                              gate_xy: float):
     """Compose a refinement pass's raw predictions (t2, a2, c2) onto the

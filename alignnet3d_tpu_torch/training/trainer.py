@@ -2,8 +2,10 @@
 (reference train.py:187-545).
 
 What it keeps from the reference and the JAX package:
-- staircase LR decay with a 1e-5 floor, Adam or momentum SGD, the LR read
-  at the step count before the update (as optax's schedule);
+- staircase LR decay with a 1e-5 floor, Adam or momentum SGD; the LR
+  applied is read at the optimizer's own count before the update (optax's
+  ``ScaleByScheduleState.count``), which a pretraining restore keeps, and
+  the LR logged at the step (``learning_rate(step)``), which it resets;
 - the scheduled BN momentum fed into every ``EmaBatchNorm`` each step;
 - per epoch a shuffled drop-remainder training epoch, then a full val-set
   eval writing eval.json + eval_180.json and the 8 pred_*.npy arrays;
@@ -12,6 +14,8 @@ What it keeps from the reference and the JAX package:
   and on the last; resume from the rolling one with the epoch-alignment
   assert; ``training.pretraining.model`` restores all but the step and
   runs an eval tagged 'pretr';
+- the residual-alignment task (data.residual_task) on train and eval
+  batches;
 - JSONL scalar files train/val/val_180 with the reference's tags;
 - the eval-time stack: the component filter and voxel views of the
   dataset (data.denoise, data.resample), a gated second network pass
@@ -19,16 +23,18 @@ What it keeps from the reference and the JAX package:
   cascade of stages (refine_icp, evaluation.refinement*), stored
   predictions (use_old_results) and timing mode (do_timings).
 
-In PyTorch: checkpoints are ``torch.save`` dicts of the step, the model's
-``state_dict`` and the optimizer's, named as the JAX package's with
-``.pt`` for ``.msgpack``. The input jitter (sigma 0.01, clipped at 0.05)
+In PyTorch: checkpoints are written as ``.pt`` (``checkpoint.py``), named
+as the JAX package's with ``.pt`` for ``.msgpack``; every restore reads
+either format, a name without a suffix taking ``.pt`` when it exists, else
+``.msgpack``, so a run of the JAX package resumes, evaluates, fine-tunes
+or refines here. The input jitter (sigma 0.01, clipped at 0.05)
 is drawn on the device from a ``torch.Generator`` seeded from ``seed``,
 and dropout from another. Batches come from the ``PackedDataset`` numpy
 path behind a background prefetch thread; the per-step scalars stay on
 the device until one readback at the end of the epoch.
 
-Options the port does not run (data.residual_task, evaluation.special
-modes other than 'timings', tpu.profile) raise ``NotImplementedError``
+Options the port does not run (evaluation.special modes other than
+'timings', tpu.profile) raise ``NotImplementedError``
 naming their ROADMAP item; the mesh and ``tpu.steps_per_dispatch`` are
 TPU-only and have no counterpart here.
 """
@@ -46,7 +52,12 @@ from typing import Any
 import numpy as np
 import torch
 
+from alignnet3d_tpu_torch import checkpoint
 from alignnet3d_tpu_torch.data import provider
+from alignnet3d_tpu_torch.data.residual import (
+    apply_residual_task,
+    params_from_config,
+)
 from alignnet3d_tpu_torch.evaluation import metrics as evaluation
 from alignnet3d_tpu_torch.evaluation.decode import decode_pair_outputs
 from alignnet3d_tpu_torch.geometry import (
@@ -149,8 +160,6 @@ def cascade_stage_kwargs(base_kwargs: dict, stage: dict) -> dict:
 def _check_ported(cfg):
     """Raise on the options this port does not run yet."""
     unported = []
-    if cfg.data.has("residual_task") and cfg.data.residual_task.enabled:
-        unported.append("data.residual_task")
     ev = cfg.evaluation
     if ev.has("special") and ev.special.mode != "timings":
         unported.append(f"evaluation.special (mode {ev.special.mode!r})")
@@ -198,6 +207,7 @@ class Trainer:
             self.dataset.enable_voxel_resample(
                 rs.voxel_size if rs.has("voxel_size") else 0.05)
         self._refine_model = None  # (weights path, model) of network_refine
+        self._residual_params = params_from_config(cfg)
         # seconds of the last eval's stages: network refine, ICP per stage
         self.eval_times: dict = {}
         self._data_rng = np.random.default_rng(seed + 1)
@@ -208,6 +218,10 @@ class Trainer:
                 module.generator = dropout_gen
         self.optimizer = None
         self.step = 0
+        # the optimizer's own update count, which the applied LR is read
+        # at (optax's ScaleByScheduleState.count): it equals ``step`` but
+        # for a pretraining restore, which resets ``step`` only
+        self.schedule_count = 0
 
     # ------------------------------------------------------------ building
 
@@ -231,6 +245,7 @@ class Trainer:
         self.model.load_state_dict(init_state_dict(self.spec, self.seed))
         self.optimizer = self._make_optimizer()
         self.step = 0
+        self.schedule_count = 0
 
     # ---------------------------------------------------------- the steps
 
@@ -251,7 +266,9 @@ class Trainer:
         pcs1, pcs2, translations, rel_angles, c1, c2, a1, a2 = \
             self._to_device(batch)
         bn_m = schedules.bn_decay(self.step, self.cfg, self._nbpe)
-        lr = schedules.learning_rate(self.step, self.cfg, self._nbpe)
+        lr = schedules.learning_rate(self.schedule_count, self.cfg,
+                                     self._nbpe)
+        logged_lr = schedules.learning_rate(self.step, self.cfg, self._nbpe)
         pcs1, pcs2 = self._jitter(pcs1), self._jitter(pcs2)
         self.model.train()
         out = self.model(pcs1, pcs2, momentum=bn_m)
@@ -263,8 +280,9 @@ class Trainer:
             group["lr"] = lr
         self.optimizer.step()
         self.step += 1
+        self.schedule_count += 1
         return {"losses/loss": loss.detach(),
-                "hyperparameters/learning_rate": lr,
+                "hyperparameters/learning_rate": logged_lr,
                 "hyperparameters/bn_decay": bn_m,
                 **{k: v.detach() for k, v in aux.items()}}
 
@@ -288,24 +306,34 @@ class Trainer:
 
     def save_checkpoint(self, name: str) -> str:
         path = self._ckpt_path(name)
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        torch.save({"step": self.step, "model": self.model.state_dict(),
-                    "optimizer": self.optimizer.state_dict()}, path)
+        checkpoint.save(path, self.model, self.optimizer, self.step,
+                        self.schedule_count)
         logger.info(f"Model saved in file: {path}")
         return path
 
     def restore_checkpoint(self, path: str, except_step: bool = False):
-        ckpt = torch.load(path, map_location=self.device, weights_only=True)
-        self.model.load_state_dict(ckpt["model"])
-        self.optimizer.load_state_dict(ckpt["optimizer"])
+        """Restore a ``.pt`` or ``.msgpack`` (a path without a suffix takes
+        ``.pt`` when it exists, else ``.msgpack``): the weights, the
+        optimizer's state and its count, and, unless ``except_step`` (a
+        pretraining restore), the step. Returns the path read."""
+        path = checkpoint.resolve(path)
+        restored = checkpoint.load(path, self.model, self.optimizer)
+        self.schedule_count = restored["schedule_count"]
         if not except_step:
-            self.step = int(ckpt["step"])
+            if restored["step"] is None:
+                raise ValueError(f"{path} holds weights only, no training "
+                                 f"step to resume from")
+            self.step = restored["step"]
+        return path
 
     # ------------------------------------------------------------- epochs
 
     def _make_batch(self, indices, rng: np.random.Generator | None = None):
         rng = self._data_rng if rng is None else rng
-        return self.dataset.sample_batch(indices, self.spec.num_points, rng)
+        batch = self.dataset.sample_batch(indices, self.spec.num_points, rng)
+        if self._residual_params is not None:
+            batch = apply_residual_task(batch, rng, **self._residual_params)
+        return batch
 
     def _epoch_rng(self, *tags) -> np.random.Generator:
         """A fresh generator per (seed, tags): the prefetch thread owns it,
@@ -362,13 +390,13 @@ class Trainer:
 
     def _refine_weights_model(self, weights: str):
         """The model of a network_refine ``weights`` checkpoint (a path
-        without ``.pt``, as training.pretraining.model), cached: during
-        training the pass runs every eval epoch."""
+        without a suffix, as training.pretraining.model: ``.pt`` or else
+        ``.msgpack``), cached: during training the pass runs every eval
+        epoch."""
         if self._refine_model is None or self._refine_model[0] != weights:
             model = AlignNet(self.spec).to(self.device)
-            ckpt = torch.load(weights + ".pt", map_location=self.device,
-                              weights_only=True)
-            model.load_state_dict(ckpt["model"])
+            model.load_state_dict(checkpoint.state_dict_from_file(
+                weights, self.device))
             self._refine_model = (weights, model)
         return self._refine_model[1]
 
@@ -393,6 +421,13 @@ class Trainer:
                     if gate is not None and gate.has("max_dyaw_deg") else 2.0)
         gate_xy = (gate.max_dxy
                    if gate is not None and gate.has("max_dxy") else 0.15)
+        # the residual rewrite would compose a second random pre-alignment
+        # on top of M1 in the batches below
+        if self._residual_params is not None:
+            raise ValueError(
+                "evaluation.network_refine and data.residual_task are "
+                "mutually exclusive in one config: point network_refine at "
+                "the residual-trained weights instead (weights key)")
         model = (self._refine_weights_model(net_ref.weights)
                  if net_ref.has("weights") and net_ref.weights else None)
         M1 = get_mat_angle_batch(P["pred_translations"],
@@ -668,8 +703,8 @@ class Trainer:
         if eval_only:
             model_dir = eval_only_model_to_load or self.logdir
             if not use_old_results and not do_timings:
-                path = os.path.join(model_dir, f"model-{eval_epoch}.pt")
-                self.restore_checkpoint(path)
+                self.restore_checkpoint(
+                    os.path.join(model_dir, f"model-{eval_epoch}"))
                 if eval_only_model_to_load is None and nbpe and (
                         self.step % nbpe != 0
                         or self.step // nbpe - 1 != int(eval_epoch)):
@@ -678,8 +713,8 @@ class Trainer:
             start_epoch = int(eval_epoch)
             logger.info(f"Evaluating at epoch {start_epoch}")
         else:
-            rolling = self._ckpt_path("model.ckpt")
-            if os.path.isfile(rolling):
+            rolling = checkpoint.find(os.path.join(self.logdir, "model.ckpt"))
+            if rolling is not None:
                 self.restore_checkpoint(rolling)
                 if self.step % nbpe != 0:
                     raise ValueError(f"rolling checkpoint step {self.step} is "
@@ -687,11 +722,10 @@ class Trainer:
                 start_epoch = self.step // nbpe
                 logger.info(f"Continuing training at epoch {start_epoch}")
             elif cfg.training.pretraining.model != "":
-                pre = cfg.training.pretraining.model
-                if not pre.endswith(".pt"):
-                    pre = pre + ".pt"
-                self.restore_checkpoint(pre, except_step=True)
-                logger.info(f"Pre-trained weights loaded from {pre},"
+                pre = self.restore_checkpoint(cfg.training.pretraining.model,
+                                              except_step=True)
+                logger.info(f"Pre-trained weights loaded from {pre} "
+                            f"(optimizer count {self.schedule_count}),"
                             " starting initial evaluation")
                 self.eval_one_epoch("pretr", eval_only=False,
                                     val_writer=val_writer,

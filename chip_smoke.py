@@ -35,7 +35,15 @@ From the root of a checkout, with nothing built beforehand:
     p2plane ICP) and with ``configs/SynthCars80kNetRefineCascade.json``
     (a gated 2-stage p2p cascade), counting launches, and holds ICP from
     perturbed ground truth on the card against the CPU;
-11. prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
+11. trained runs across the two packages: writes that FullStack run as
+    the JAX package's flax ``model-0.msgpack`` (``checkpoint.py``) and
+    reads it back bit-equal, serves both files through
+    ``Aligner.from_checkpoint`` with bit-equal answers, trains one epoch
+    of ``configs/SynthCars80kRefiner.json`` (the residual task) through
+    the CLI with the ``.msgpack`` run as its pretrained model, and serves
+    the two-stage request (flips, network refine with the refiner, ICP),
+    counting launches, held against the CPU on the same inputs;
+12. prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
 
 Any failed phase exits non-zero without the last line. So does a machine
 without a CUDA card.
@@ -63,6 +71,7 @@ DGCNN_CONFIG = ROOT / "configs" / "SynthCars40kDGCNN.json"
 TRAIN_CONFIG = ROOT / "configs" / "SynthCars40kDGCNNFusedR4.json"
 FULLSTACK_CONFIG = ROOT / "configs" / "SynthCars80kFullStack.json"
 CASCADE_CONFIG = ROOT / "configs" / "SynthCars80kNetRefineCascade.json"
+REFINER_CONFIG = ROOT / "configs" / "SynthCars80kRefiner.json"
 DATA_SHARDS = 8            # worker processes of the dataset generator
 SHARD_TRAIN, SHARD_VAL = 48, 16   # pairs per shard: 384 train, 128 val
 SEED = 0
@@ -1105,14 +1114,17 @@ def pointnet_training_phase(basepath: str, workdir: str):
           f"device memory {peak / 2**30:.2f} GiB")
 
 
-def _refine_config(path: Path, basepath: str, basedir: str, name: str) -> str:
+def _refine_config(path: Path, basepath: str, basedir: str, name: str,
+                   **training) -> str:
     """The config at ``path`` as ``basedir/name.json``: the generated
-    dataset, one epoch, log directory ``basedir/name``."""
+    dataset, one epoch, log directory ``basedir/name``, and ``training``
+    keys overridden by ``training``."""
     with open(path) as f:
         d = json.load(f)
     d["data"]["basepath"] = basepath
     d["logging"] = {"basedir": basedir}
     d["training"]["num_epochs"] = 1
+    d["training"].update(training)
     out = os.path.join(basedir, f"{name}.json")
     with open(out, "w") as f:
         json.dump(d, f)
@@ -1279,6 +1291,223 @@ def refinement_phase(basepath: str, workdir: str):
               f"init's")
     print(f"refinement phase: {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+def _same_tree(got: dict, want: dict, path: str = "") -> int:
+    """Leaves of two state trees, bit-equal in value, dtype and shape;
+    returns their count."""
+    check(got.keys() == want.keys(), f"state tree {path}: keys differ")
+    n = 0
+    for key, w in want.items():
+        g = got[key]
+        if isinstance(w, dict):
+            n += _same_tree(g, w, f"{path}/{key}")
+            continue
+        check(g.dtype == w.dtype and g.shape == w.shape
+              and np.array_equal(g, w), f"state leaf {path}/{key} differs")
+        n += 1
+    return n
+
+
+def _val_clouds(basepath: str):
+    from alignnet3d_tpu_torch.data.provider import getDataFiles
+
+    val = getDataFiles(f"{basepath}/split/val.txt")[:PAIRS]
+    return tuple([np.load(os.path.join(basepath, f"pointcloud{k}",
+                                       f"{i:08d}.npy")) for i in val]
+                 for k in (1, 2))
+
+
+def trained_runs_phase(basepath: str, workdir: str, card: str):
+    """Runs across the two packages, at the width of
+    ``configs/SynthCars80kRefiner.json`` (the FullStack model's): (a) the
+    refinement phase's FullStack run written as the JAX layout
+    ``model-0.msgpack`` and read back bit-equal, and
+    ``Aligner.from_checkpoint`` of the ``.pt`` and of the ``.msgpack``
+    answering PAIRS val pairs bit-equal; (b) one epoch of the Refiner
+    config through the CLI, ``pretraining.model`` the ``.msgpack`` run
+    without its suffix, the residual task on; (c) the two-stage request,
+    coarse + refiner (flips, network refine, ICP), with the launch counts
+    set to 0 just before and read just after, held against the CPU on the
+    same inputs: the network stage on all PAIRS pairs (so that both draw
+    the same resamples), ICP on REFINE_CPU_PAIRS of them from the card's
+    inits. Returns the launch counts of (c)."""
+    from alignnet3d_tpu_torch import api, checkpoint, cli
+    from alignnet3d_tpu_torch.config import config_from_dict
+    from alignnet3d_tpu_torch.models.alignnet import AlignNet, ModelSpec
+    from alignnet3d_tpu_torch.training import schedules
+
+    t_phase = time.perf_counter()
+    fullstack = os.path.join(workdir, "refine", "fullstack")
+    basedir = os.path.join(workdir, "trained")
+    coarse = os.path.join(basedir, "coarse")
+    os.makedirs(coarse)
+    config = os.path.join(coarse, "config.json")
+    shutil.copy(os.path.join(fullstack, "config.json"), config)
+    with open(config) as f:
+        spec = ModelSpec.from_config(config_from_dict(json.load(f)))
+
+    # (a) the port's run in the JAX layout, and back
+    pt = os.path.join(fullstack, "model-0.pt")
+    packed = os.path.join(coarse, "model-0.msgpack")
+    model = AlignNet(spec)
+    opt = torch.optim.Adam(model.parameters())
+    restored = checkpoint.load(pt, model, opt)
+    t0 = time.perf_counter()
+    checkpoint.save(packed, model, opt, restored["step"],
+                    restored["schedule_count"])
+    back = checkpoint.read_msgpack(packed)
+    rw_s = time.perf_counter() - t0
+    leaves = _same_tree(back, checkpoint.train_state_tree(
+        model, opt, restored["step"], restored["schedule_count"]))
+    again = AlignNet(spec)
+    again_opt = torch.optim.Adam(again.parameters())
+    check(checkpoint.load(packed, again, again_opt) == restored,
+          f"the .msgpack run restores another step or count than {restored}")
+    for (k, a), b in zip(model.state_dict().items(),
+                         again.state_dict().values()):
+        check(torch.equal(a, b), f"{k}: the .msgpack weights differ")
+    check(len(opt.state) == len(again_opt.state) == len(
+        list(model.parameters())), "the runs hold no Adam state")
+    for p, q in zip(model.parameters(), again.parameters()):
+        for key, a in opt.state[p].items():
+            check(torch.equal(a, again_opt.state[q][key]),
+                  f"Adam {key}: the .msgpack state differs")
+    check(restored["schedule_count"] == restored["step"] > 0,
+          f"the FullStack run's counts {restored}")
+    print(f"FullStack run as the JAX TrainState model-0.msgpack: {leaves} "
+          f"leaves, {os.path.getsize(packed) / 2**20:.1f} MiB, written and "
+          f"read in {rw_s:.2f} s (host); step and optimizer count "
+          f"{restored['step']}; every leaf, weight and Adam moment bit-equal")
+
+    pcs1, pcs2 = _val_clouds(basepath)
+    answers = [api.Aligner.from_checkpoint(config, path, batch_size=PAIRS,
+                                           seed=SEED).align(
+        pcs1, pcs2, resolve_flips=True) for path in (pt, packed)]
+    for key, value in answers[0].items():
+        check(np.array_equal(value, answers[1][key]),
+              f"from_checkpoint: .pt and .msgpack answers differ in {key}")
+    print(f"Aligner.from_checkpoint of the .pt and the .msgpack, {PAIRS} val "
+          f"pairs with flips on the card: answers bit-equal")
+
+    # (b) the refiner: one epoch of the residual task from the .msgpack run
+    refiner_cfg = _refine_config(
+        REFINER_CONFIG, basepath, basedir, "refiner",
+        pretraining={"model": os.path.join(coarse, "model-0")})
+    t0 = time.perf_counter()
+    trainer = cli.main(["train", "--config", refiner_cfg, "--seed",
+                        str(SEED)])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    logdir = os.path.join(basedir, "refiner")
+    _check_trained(logdir, "Refiner")
+    check(os.path.isfile(os.path.join(logdir, "val", "eval0pretr",
+                                      "eval.json")),
+          "Refiner: no 'pretr' eval of the restored run")
+    check(trainer._residual_params is not None, "Refiner: no residual task")
+    nbpe = trainer.num_batches_per_epoch
+    check(trainer.step == nbpe
+          and trainer.schedule_count == restored["schedule_count"] + nbpe,
+          f"Refiner: step {trainer.step}, optimizer count "
+          f"{trainer.schedule_count}, coarse count "
+          f"{restored['schedule_count']}")
+    with open(os.path.join(logdir, "train", "scalars.jsonl")) as f:
+        logged = [json.loads(line)["hyperparameters/learning_rate"]
+                  for line in f]
+    applied = [schedules.learning_rate(restored["schedule_count"] + s,
+                                       trainer.cfg, nbpe) for s in range(nbpe)]
+    print(f"Refiner training through the CLI from the .msgpack run, 1 epoch "
+          f"({nbpe} steps of {PAIRS} pairs + the 'pretr' and epoch evals): "
+          f"{train_s:.1f} s (host clock, {card}); optimizer count "
+          f"{restored['schedule_count']} -> {trainer.schedule_count}; "
+          f"learning rates applied {applied}, logged {logged}")
+
+    # (c) the two-stage request, coarse + refiner
+    refiner = checkpoint.state_dict_from_file(
+        os.path.join(logdir, "model-0"), "cuda")
+    kwargs = dict(resolve_flips=True, network_refine=True, refine_icp=True)
+    aligner = api.Aligner.from_checkpoint(config, packed, batch_size=PAIRS,
+                                          seed=SEED)
+    aligner.align(pcs1, pcs2, refine_variables=refiner, **kwargs)  # warm-up
+    rng_state = aligner._rng.bit_generator.state
+    seen = {}
+    gate, icp = api.compose_gated_refinement, api.icp_p2point_batch
+
+    def gate_spy(*args, **kw):
+        seen["gate"] = gate(*args, **kw)
+        return seen["gate"]
+
+    def icp_spy(*args, **kw):
+        seen["icp_in"] = (args, kw)
+        seen["icp"] = icp(*args, **kw)
+        return seen["icp"]
+
+    wrappers = _wrappers()
+    api.compose_gated_refinement, api.icp_p2point_batch = gate_spy, icp_spy
+    try:
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = aligner.align(pcs1, pcs2, refine_variables=refiner, **kwargs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: fn.launches for name, fn in wrappers.items()}
+        gpu_gate, gpu_icp_in, gpu_icp = seen["gate"], seen["icp_in"], \
+            seen["icp"]
+        cpu = api.Aligner.from_checkpoint(config, packed, batch_size=PAIRS,
+                                          device="cpu")
+        cpu._rng.bit_generator.state = rng_state
+        t0 = time.perf_counter()
+        cpu.align(pcs1, pcs2, refine_variables=checkpoint
+                  .state_dict_from_file(os.path.join(logdir, "model-0")),
+                  resolve_flips=True, network_refine=True)
+        cpu_net_s = time.perf_counter() - t0
+        cpu_gate = seen["gate"]
+    finally:
+        api.compose_gated_refinement, api.icp_p2point_batch = gate, icp
+    check(all(np.isfinite(v).all() for v in out.values())
+          and out["transforms"].shape == (PAIRS, 4, 4),
+          "two-stage request: non-finite answer or wrong shape")
+    batches = -(-PAIRS // aligner.batch_size)
+    expected = {"fused_pointnet": 3 * batches * 2,
+                "nn_argmin": 2 * batches * 2 + ICP_ITS + 1}
+    for name, want in expected.items():
+        check(counts[name] == want,
+              f"two-stage request: {name} {counts[name]} launches, expected "
+              f"{want}")
+
+    m = REFINE_CPU_PAIRS
+    args, kw = gpu_icp_in
+    t0 = time.perf_counter()
+    cpu_tf, _, _ = icp(*(a[:m] for a in args), **dict(kw, device="cpu"))
+    cpu_icp_s = time.perf_counter() - t0
+
+    def agree(Ma, Mb):
+        dt = np.linalg.norm(Ma[:, :3, 3] - Mb[:, :3, 3], axis=1)
+        da = np.degrees(_angle_gap(np.arctan2(Ma[:, 1, 0], Ma[:, 0, 0]),
+                                   np.arctan2(Mb[:, 1, 0], Mb[:, 0, 0])))
+        return (dt <= ICP_TOL[0]) & (da <= ICP_TOL[1])
+
+    same_gate = gpu_gate[1][:m] == cpu_gate[1][:m]
+    net_agree = agree(gpu_gate[0][:m], cpu_gate[0][:m])
+    icp_agree = agree(gpu_icp[0][:m], cpu_tf)
+    print(f"two-stage request (coarse .msgpack + refiner, flips, network "
+          f"refine, ICP {ICP_ITS} its), {PAIRS} val pairs: {wall * 1e3:.1f} "
+          f"ms (host clock, ends in a synchronize; {card}); network refine "
+          f"accepted {int(gpu_gate[1].sum())}/{PAIRS}; kernel launches "
+          f"{counts}")
+    print(f"two-stage request, card vs CPU on the first {m} pairs: gate "
+          f"decisions equal {same_gate.mean():.1%}; network-stage poses "
+          f"within {ICP_TOL[0]} m and {ICP_TOL[1]} deg {net_agree.mean():.1%}"
+          f"; ICP from the card's inits {icp_agree.mean():.1%} (CPU network "
+          f"stage of {PAIRS} pairs {cpu_net_s:.1f} s, ICP of {m} pairs "
+          f"{cpu_icp_s:.1f} s)")
+    check(same_gate.all(), "two-stage request: card and CPU gate decisions "
+          "differ")
+    check(net_agree.mean() >= ICP_AGREE and icp_agree.mean() >= ICP_AGREE,
+          "two-stage request: card and CPU poses disagree")
+    print(f"trained-runs phase: {time.perf_counter() - t_phase:.1f} s")
+    return {name: counts[name] for name in expected}
 
 
 def _wrappers():
@@ -1461,7 +1690,8 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
@@ -1535,6 +1765,9 @@ def main() -> int:
         # nn_argmin's launches: the PointNet serving path's and the
         # refinement path's
         launches["nn_argmin"] += refinement_phase(basepath, workdir)
+        # and the two-stage request's, coarse + refiner
+        for name, n in trained_runs_phase(basepath, workdir, card).items():
+            launches[name] += n
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

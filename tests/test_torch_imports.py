@@ -1,5 +1,5 @@
-"""The port needs nothing of jax, flax, optax, tqdm or the JAX package
-``alignnet3d_tpu``: every module of the port (the training modules
+"""The port needs nothing of jax, flax, optax, tqdm, msgpack or the JAX
+package ``alignnet3d_tpu``: every module of the port (the training modules
 included), and every module that ``chip_smoke.py`` imports, imports in a
 process where they cannot be imported, and no source names them. The port
 keeps its own copies of the numpy host code it shares with the JAX
@@ -14,7 +14,7 @@ import alignnet3d_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG_DIR = os.path.dirname(alignnet3d_tpu_torch.__file__)
-BLOCKED = ("jax", "flax", "optax", "tqdm", "alignnet3d_tpu")
+BLOCKED = ("jax", "flax", "optax", "tqdm", "msgpack", "alignnet3d_tpu")
 
 _BLOCK = """
 import importlib, sys
@@ -48,8 +48,9 @@ def test_every_module_imports_with_jax_blocked():
 
 
 def test_no_source_imports_jax():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|tqdm)\b",
-                         re.M)
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|flax|optax|tqdm|msgpack)\b",
+        re.M)
     for root, _, files in os.walk(PKG_DIR):
         for f in files:
             if f.endswith(".py"):
@@ -109,7 +110,9 @@ def test_the_training_slice_is_among_the_modules():
             "alignnet3d_tpu_torch.ops.edge_train_kernels",
             "alignnet3d_tpu_torch.evaluation.metrics",
             "alignnet3d_tpu_torch.cli",
-            "alignnet3d_tpu_torch.icp.p2plane"} <= names
+            "alignnet3d_tpu_torch.icp.p2plane",
+            "alignnet3d_tpu_torch.checkpoint",
+            "alignnet3d_tpu_torch.data.residual"} <= names
 
 
 def test_kernel_bench_and_its_imports_load_with_the_jax_package_blocked():

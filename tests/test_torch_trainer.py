@@ -133,7 +133,6 @@ def test_eval_only_and_pretrained_restore(dataset, tmp_path):
 
 
 @pytest.mark.parametrize("path,value", [
-    ("data.residual_task", {"enabled": True}),
     ("evaluation.special", {"mode": "held"}),
     ("tpu.profile", {"dir": "prof", "steps": 2}),
 ])
