@@ -8,8 +8,8 @@
 
 It runs on the card unless ``--device cpu`` is given. Of the special
 evaluation modes (``evaluation.special.mode``, reference train.py:548-561)
-'timings' runs (10 timed evals at batch 32); 'held' and 'icp' are not
-ported.
+'icp' runs the standalone classical baselines (``icp/runner.py``) and
+'timings' 10 timed evals at batch 32; 'held' is not ported.
 """
 
 from __future__ import annotations
@@ -41,7 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    """Run the command; returns the last ``Trainer``."""
+    """Run the command; returns the last ``Trainer``, or in 'icp' mode the
+    runner's eval dict."""
     flags = build_parser().parse_args(argv)
 
     from alignnet3d_tpu_torch.config import load_config
@@ -50,6 +51,12 @@ def main(argv=None):
     cfg = load_config(flags.config)
     if cfg.evaluation.has("special"):
         mode = cfg.evaluation.special.mode
+        if mode == "icp":
+            print(flags.config)
+            from alignnet3d_tpu_torch.icp import runner
+
+            return runner.evaluate(cfg, flags.use_old_results,
+                                   device=flags.device)
         if mode == "timings":
             for bs in [32]:
                 cfg.training.__dict__["batch_size"] = bs
@@ -61,10 +68,6 @@ def main(argv=None):
             raise NotImplementedError(
                 "evaluation.special.mode 'held' is not ported yet (ROADMAP.md,"
                 " Queue 1: the KITTI/held evaluation toolchain)")
-        if mode == "icp":
-            raise NotImplementedError(
-                "evaluation.special.mode 'icp' is not ported yet (ROADMAP.md, "
-                "Queue 1: FPFH, FGR and the standalone ICP runner)")
         raise ValueError(f"unknown special mode {mode!r}")
 
     trainer = Trainer(cfg, seed=flags.seed, device=flags.device)

@@ -7,3 +7,4 @@ from alignnet3d_tpu_torch.icp.p2plane import (  # noqa: F401
     estimate_normals_batch,
     icp_p2plane_batch,
 )
+from alignnet3d_tpu_torch.icp.runner import evaluate  # noqa: F401

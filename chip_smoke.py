@@ -43,7 +43,16 @@ From the root of a checkout, with nothing built beforehand:
     the CLI with the ``.msgpack`` run as its pretrained model, and serves
     the two-stage request (flips, network refine with the refiner, ICP),
     counting launches, held against the CPU on the same inputs;
-12. prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
+12. the classical baselines (``evaluation.special.mode 'icp'``): the five
+    variants of ``make_icp_configs.py`` (p2point, FPFH + RANSAC, FPFH +
+    FGR, both refined by p2p ICP) and multistart through
+    ``alignnet3d_tpu_torch.cli`` over the 128 val pairs, in
+    ``eval_icp.sh``'s order, counting launches; the same runner on 32 of
+    the pairs (multistart on 8) on the card and on the CPU, compared pair
+    by pair; recovery
+    of a 137 degree motion on the 32 largest clouds, card against CPU; and
+    kernel 2 at multistart's coarse shape (1,024 x 4,096 points);
+13. prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
 
 Any failed phase exits non-zero without the last line. So does a machine
 without a CUDA card.
@@ -53,6 +62,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import logging
 import multiprocessing
 import os
 import shutil
@@ -128,6 +138,27 @@ STEP_SENS_REL = 1e-7
 STEP_SENS_DRAWS = 3
 STEP_SENS_FACTOR = 2.0
 SPIN_CYCLES = 400_000    # device_ms: ~0.2 ms of spinning per timed call
+# the classical baselines: make_icp_configs.py's variants and multistart, in
+# eval_icp.sh's order (each base before its *_p2p)
+BASELINE_ORDER = ("o3_p2p", "o3_gicp", "o3_gicp_fast", "o3_gicp_p2p",
+                  "o3_gicp_fast_p2p", "multistart")
+# nn_argmin launches per run of PAIRS pairs (one chunk): ICP_ITS + 1 (the
+# final score); multistart adds a coarse pass of 15 iterations + 1
+BASELINE_LAUNCHES = {"o3_p2p": ICP_ITS + 1, "o3_gicp": 0, "o3_gicp_fast": 0,
+                     "o3_gicp_p2p": ICP_ITS + 1,
+                     "o3_gicp_fast_p2p": ICP_ITS + 1,
+                     "multistart": 16 + ICP_ITS + 1}
+BASELINE_CPU_PAIRS = 32  # of the PAIRS val pairs, also run on the CPU
+MULTISTART_CPU_PAIRS = 8  # multistart's: 8 yaw hypotheses a pair
+# share of pairs within ICP_TOL, card vs CPU: the ICP-based variants, and
+# the global registrations alone (their features and matches can settle a
+# near-tie by rounding)
+BASELINE_AGREE = {"o3_p2p": ICP_AGREE, "o3_gicp_p2p": ICP_AGREE,
+                  "o3_gicp_fast_p2p": ICP_AGREE, "multistart": ICP_AGREE,
+                  "o3_gicp": 0.90, "o3_gicp_fast": 0.90}
+RECOVERY_CLOUDS = 32     # the largest val clouds, each against itself moved
+RECOVERY_MOTION = ((0.5, -0.3, 0.0), 2.4)   # m, rad (~137 deg)
+RECOVERY_TOL = 0.02      # m, median point error of a recovered cloud
 _ONE_THREAD = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
 
 
@@ -1510,6 +1541,317 @@ def trained_runs_phase(basepath: str, workdir: str, card: str):
     return {name: counts[name] for name in expected}
 
 
+def _baseline_configs(data_root: str, runs: str, cfg_dir: str):
+    """The classical-baseline configs as make_icp_configs.py writes them
+    (its SynthCars ones, pointed at ``data_root/SynthCars``), plus
+    multistart, logging under ``runs``: {variant name: path}."""
+    import make_icp_configs
+
+    make_icp_configs.main(basedir=cfg_dir, data_root=data_root)
+    paths = {}
+    for vname, icp in list(make_icp_configs.VARIANTS.items()) + [
+            ("multistart", {"variant": "multistart"})]:
+        path = os.path.join(cfg_dir, f"icp_SynthCars_{vname}.json")
+        d = {"data": {"basepath": f"{data_root}/SynthCars"},
+             "evaluation": {"special": {"mode": "icp", "icp": {
+                 "with_constraint": True, **icp}}}}
+        if os.path.isfile(path):
+            with open(path) as f:
+                d = json.load(f)
+        d["logging"] = {"basedir": runs}
+        with open(path, "w") as f:
+            json.dump(d, f)
+        paths[vname] = path
+    return paths
+
+
+def _baseline_preds(runs: str, vname: str):
+    ev = os.path.join(runs, "icp_SynthCars", f"icp_SynthCars_{vname}", "val",
+                      "eval000000")
+    return tuple(np.load(os.path.join(ev, f"pred_{k}.npy")) for k in
+                 ("translations", "angles", "s1_pc1centers")), ev
+
+
+def _pose_agree(t1, a1, t2, a2):
+    """Per pair: translations within ICP_TOL[0] m and yaws within
+    ICP_TOL[1] degrees."""
+    dt = np.linalg.norm(t1 - t2, axis=1)
+    da = np.degrees(_angle_gap(a1.reshape(-1), a2.reshape(-1)))
+    return (dt <= ICP_TOL[0]) & (da <= ICP_TOL[1])
+
+
+def _run_baselines(cli, paths, device: str, counts: bool = False,
+                   variants=BASELINE_ORDER):
+    """Each of ``variants`` through ``alignnet3d_tpu_torch.cli train
+    --config``, in eval_icp.sh's order; with ``counts``, nn_argmin's
+    launches set to 0 just before each run and read just after, and the
+    card's peak memory. Returns {variant: (seconds, launches, peak
+    bytes)}."""
+    from alignnet3d_tpu_torch.ops.nn_kernels import nn_argmin
+
+    # the runner logs both eval dicts of every run; this script prints its
+    # own summary
+    log = logging.getLogger("alignnet3d_tpu_torch")
+    level = log.level
+    log.setLevel(logging.WARNING)
+    out = {}
+    try:
+        for vname in variants:
+            if counts:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                nn_argmin.launches = 0
+            t0 = time.perf_counter()
+            cli.main(["train", "--config", paths[vname], "--device", device])
+            if counts:
+                torch.cuda.synchronize()
+            out[vname] = (time.perf_counter() - t0, nn_argmin.launches,
+                          torch.cuda.max_memory_allocated() if counts else 0)
+    finally:
+        log.setLevel(level)
+    return out
+
+
+def _copy_pairs(basepath: str, dest: str, idxs):
+    """A dataset at ``dest`` whose val split holds the pairs ``idxs`` of
+    ``basepath`` (their files copied under the same indices)."""
+    for sub in ("meta", "pointcloud1", "pointcloud2", "split"):
+        os.makedirs(os.path.join(dest, sub))
+    for i in idxs:
+        for sub, ext in (("meta", "json"), ("pointcloud1", "npy"),
+                         ("pointcloud2", "npy")):
+            shutil.copy(os.path.join(basepath, sub, f"{i:08d}.{ext}"),
+                        os.path.join(dest, sub, f"{i:08d}.{ext}"))
+    with open(os.path.join(dest, "split", "val.txt"), "w") as f:
+        f.write("\n".join(str(i) for i in idxs) + "\n")
+    open(os.path.join(dest, "split", "train.txt"), "w").close()
+
+
+def _recovery(clouds, device: str):
+    """Each cloud registered against itself moved by RECOVERY_MOTION, by
+    FPFH + RANSAC and by FPFH + FGR, each refined by p2p ICP as the
+    ``*_p2p`` variants refine (30 iterations, radius 0.1). Returns
+    {variant: (median point error per cloud, seconds)}."""
+    from alignnet3d_tpu_torch.geometry import get_mat_angle, transform_points
+    from alignnet3d_tpu_torch.icp.fpfh import global_registration_batch
+    from alignnet3d_tpu_torch.icp.p2point import icp_p2point_batch
+
+    src, mask = clouds
+    gt = get_mat_angle(*RECOVERY_MOTION)
+    dst = np.stack([transform_points(c, gt) for c in src]).astype(np.float32)
+    out = {}
+    for vname, method in (("o3_gicp_p2p", "ransac"),
+                          ("o3_gicp_fast_p2p", "fgr")):
+        t0 = time.perf_counter()
+        tf, _, _ = global_registration_batch(src, mask, dst, mask,
+                                             method=method, device=device)
+        # the runner stores (t, yaw) and refines from get_mat_angle of them
+        init = np.stack([get_mat_angle(m[:3, 3].astype(np.float32),
+                                       np.float32(np.arctan2(m[1, 0],
+                                                             m[0, 0])))
+                         for m in tf])
+        tf, _, _ = icp_p2point_batch(src, mask, dst, mask, init, radius=0.10,
+                                     its=30, device=device)
+        seconds = time.perf_counter() - t0
+        err = np.array([np.median(np.linalg.norm(
+            transform_points(s[m], M) - d[m], axis=1))
+            for s, d, m, M in zip(src, dst, mask, tf)])
+        out[vname] = (err, seconds)
+    return out
+
+
+def multistart_nn_shape(basepath: str, val):
+    """Kernel 2 at the multistart variant's coarse shape: the PAIRS val
+    pairs padded to 4,096 points, each source moved by 8 yaw hypotheses
+    about its centroid (8 x PAIRS clouds), against its destination; bit-equal
+    to its twin. Returns (err, ms, plain ms, bound ms, bound by)."""
+    from alignnet3d_tpu_torch.data.provider import PackedDataset
+    from alignnet3d_tpu_torch.icp.p2point import pad_full_clouds
+    from alignnet3d_tpu_torch.ops import nn_kernels as nk
+
+    (src, sm), (dst, dm) = pad_full_clouds(PackedDataset(basepath), val)
+    c1 = (src * sm[..., None]).sum(1) / np.maximum(sm.sum(1), 1)[:, None]
+    moved = []
+    for yaw in np.linspace(-np.pi, np.pi, 8, endpoint=False):
+        c, s = np.cos(yaw), np.sin(yaw)
+        R = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+        moved.append((src - c1[:, None]) @ R.T + c1[:, None])
+    a = torch.from_numpy(np.stack(moved, 1).reshape(-1, *src.shape[1:])
+                         .astype(np.float32)).cuda()
+    b = torch.from_numpy(np.repeat(dst, 8, axis=0)).cuda()
+    m = torch.from_numpy(np.repeat(dm, 8, axis=0)).cuda()
+    idx, d2 = nk.nn_argmin(a, b, m)
+    ri, rd = nk.nn_argmin_plain(a, b, m)
+    torch.cuda.synchronize()
+    check(torch.equal(idx, ri) and torch.equal(d2, rd),
+          "nn_argmin at the multistart shape is not bit-equal to its twin")
+    err = float((d2 - rd).abs().max())
+    ms = cuda_ms(lambda: nk.nn_argmin(a, b, m), iters=10)
+    plain_ms = cuda_ms(lambda: nk.nn_argmin_plain(a, b, m), iters=1,
+                       warmup=0)
+    pairs = 8 * float((sm.sum(1).astype(np.float64) * dm.sum(1)).sum())
+    nbytes = (a.numel() + b.numel()) * 4 + m.numel() + idx.numel() * 12
+    result = (err, ms, plain_ms, *bound(9 * pairs, FP32_LANE_OPS, nbytes))
+    print(f"nn_argmin multistart shape B={a.shape[0]} n1={a.shape[1]} "
+          f"n2={b.shape[1]}: bit-equal, kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {result[3]:.4f} ms ({result[4]})")
+    return result
+
+
+def _global_breakdown(basepath: str, val, card: str):
+    """Where a chunk of the global registrations spends its time, on the
+    PAIRS val pairs: the host's voxel downsample, the FPFH features of both
+    sides, RANSAC and FGR (host clock, each ending in a synchronize)."""
+    from alignnet3d_tpu_torch.data.provider import PackedDataset
+    from alignnet3d_tpu_torch.icp import fgr, fpfh
+    from alignnet3d_tpu_torch.icp.p2point import pad_full_clouds
+
+    (src, sm), (dst, dm) = pad_full_clouds(PackedDataset(basepath), val)
+    times = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    sp, smk, dp, dmk = timed("voxel downsample (host)", lambda: (
+        *fpfh.prep_downsampled_batch(src, sm, 0.05),
+        *fpfh.prep_downsampled_batch(dst, dm, 0.05)))
+    sp, smk, dp, dmk = (torch.from_numpy(x).cuda() for x in (sp, smk, dp, dmk))
+    sf, df = timed("FPFH both sides", lambda: (
+        fpfh.fpfh_features_batch(sp, smk, 0.25)[0],
+        fpfh.fpfh_features_batch(dp, dmk, 0.25)[0]))
+    timed("RANSAC 2048 hypotheses", lambda: fpfh.ransac_registration_batch(
+        sp, smk, dp, dmk, sf, df, 0.075))
+    timed("FGR 64 iterations", lambda: fgr.fgr_batch(sp, smk, dp, dmk, sf, df))
+    print(f"global registration of {len(val)} pairs, by stage: "
+          f"{ {k: round(v, 3) for k, v in times.items()} } s; "
+          f"{int(smk.sum())} + {int(dmk.sum())} downsampled points ({card})")
+
+
+def baseline_phase(basepath: str, workdir: str, card: str):
+    """The classical baselines (``evaluation.special.mode 'icp'``) at the
+    generated dataset's full width: (a) the five variants of
+    make_icp_configs.py and multistart through the CLI on the card over the
+    PAIRS val pairs, in eval_icp.sh's order, counting nn_argmin's launches;
+    (b) the same runner on a copy of the dataset that holds the first
+    BASELINE_CPU_PAIRS of them (MULTISTART_CPU_PAIRS for multistart), on
+    the card and on the CPU, compared pair by pair (the same chunk of
+    pairs, so that pad_full_clouds draws the same subsamples of >4,096-point
+    clouds on both); (c) recovery of
+    RECOVERY_MOTION on the RECOVERY_CLOUDS largest val clouds by the two
+    ``*_p2p`` pipelines, card against CPU; (d) kernel 2 at multistart's
+    coarse shape. Returns (the launches of (a), (d)'s kernel row)."""
+    from alignnet3d_tpu_torch import cli
+    from alignnet3d_tpu_torch.data.provider import getDataFiles
+
+    t_phase = time.perf_counter()
+    root = os.path.join(workdir, "baselines")
+    val = getDataFiles(f"{basepath}/split/val.txt")[:PAIRS]
+    sets = {}
+    for name, pairs in (("card", None), ("card_few", BASELINE_CPU_PAIRS),
+                        ("cpu_few", BASELINE_CPU_PAIRS),
+                        ("card_ms", MULTISTART_CPU_PAIRS),
+                        ("cpu_ms", MULTISTART_CPU_PAIRS)):
+        data_root = os.path.join(root, name, "data")
+        os.makedirs(data_root)
+        if pairs is None:
+            os.symlink(basepath, os.path.join(data_root, "SynthCars"))
+        else:
+            _copy_pairs(basepath, os.path.join(data_root, "SynthCars"),
+                        val[:pairs])
+        runs = os.path.join(root, name, "runs")
+        sets[name] = (runs, _baseline_configs(data_root, runs, os.path.join(
+            root, name, "configs")))
+
+    # (a) the main path
+    runs, paths = sets["card"]
+    stats = _run_baselines(cli, paths, "cuda", counts=True)
+    launches = 0
+    for vname in BASELINE_ORDER:
+        seconds, n_launch, peak = stats[vname]
+        (t, a, c), ev = _baseline_preds(runs, vname)
+        check(t.shape == (PAIRS, 3) and a.shape == (PAIRS, 1)
+              and np.isfinite(t).all() and np.isfinite(a).all()
+              and not c.any(), f"baseline {vname}: bad artifacts")
+        with open(os.path.join(ev, "eval.json")) as f:
+            d = json.load(f)
+        buckets = {k: d[k]["corr_levels"] for k in
+                   ("eval_5m", "eval_10m", "eval_15m", "eval_20m") if k in d}
+        print(f"baseline {vname} through the CLI on the card, {PAIRS} val "
+              f"pairs: mean_time {d['mean_time'] * 1e3:.3f} ms a pair "
+              f"({seconds:.2f} s wall with loading, metrics and files); peak "
+              f"device memory {peak / 2**30:.2f} GiB; nn_argmin launches "
+              f"{n_launch}; corr_levels {d['corr_levels']}, by distance "
+              f"{buckets}; mean error {d['mean_dist_translation']:.3f} m "
+              f"{d['mean_dist_angle']:.2f} deg ({card})")
+        check(n_launch == BASELINE_LAUNCHES[vname],
+              f"baseline {vname}: nn_argmin {n_launch} launches, expected "
+              f"{BASELINE_LAUNCHES[vname]}")
+        launches += n_launch
+
+    _global_breakdown(basepath, val, card)
+
+    # (b) card vs CPU on the same pairs: multistart, whose CPU run costs
+    # 8 x the others' (8 yaw hypotheses a pair), on fewer of them
+    few = [v for v in BASELINE_ORDER if v != "multistart"]
+    t0 = time.perf_counter()
+    cpu = {}
+    for tag, variants in (("few", few), ("ms", ["multistart"])):
+        _run_baselines(cli, sets[f"card_{tag}"][1], "cuda", variants=variants)
+        cpu.update(_run_baselines(cli, sets[f"cpu_{tag}"][1], "cpu",
+                                  variants=variants))
+    print(f"baselines on the CPU ({BASELINE_CPU_PAIRS} pairs, multistart "
+          f"{MULTISTART_CPU_PAIRS}) and on the card again: "
+          f"{time.perf_counter() - t0:.1f} s (CPU "
+          f"{ {k: round(v[0], 1) for k, v in cpu.items()} } s)")
+    for vname in BASELINE_ORDER:
+        tag = "ms" if vname == "multistart" else "few"
+        g = _baseline_preds(sets[f"card_{tag}"][0], vname)[0]
+        c = _baseline_preds(sets[f"cpu_{tag}"][0], vname)[0]
+        full = _baseline_preds(runs, vname)[0]
+        m = len(g[0])
+        agree = _pose_agree(g[0], g[1], c[0], c[1])
+        chunk = _pose_agree(g[0], g[1], full[0][:m], full[1][:m])
+        need = BASELINE_AGREE[vname]
+        print(f"baseline {vname}, card vs CPU on {m} pairs within "
+              f"{ICP_TOL[0]} m and {ICP_TOL[1]} deg: {agree.mean():.1%} "
+              f"(needs {need:.0%}; pairs apart {np.flatnonzero(~agree)}); "
+              f"the card's {m}-pair run vs its {PAIRS}-pair run "
+              f"{chunk.mean():.1%} (a chunk of other pairs draws other "
+              f"subsamples of >4,096-point clouds)")
+        check(agree.mean() >= need, f"baseline {vname}: card and CPU "
+              f"disagree on {int((~agree).sum())} of {m} pairs")
+
+    # (c) recovery of a known motion
+    clouds = [np.load(os.path.join(basepath, f"pointcloud{k}",
+                                   f"{i:08d}.npy")) for i in val
+              for k in (1, 2)]
+    largest = sorted(range(len(clouds)), key=lambda i: -len(clouds[i]))
+    rng = np.random.default_rng(SEED + 13)
+    src, mask = _ragged([clouds[i] for i in largest[:RECOVERY_CLOUDS]],
+                        4096, rng)
+    rec = {dev: _recovery((src, mask), dev) for dev in ("cuda", "cpu")}
+    for vname in rec["cuda"]:
+        (eg, sg), (ec, sc) = rec["cuda"][vname], rec["cpu"][vname]
+        ng, nc = int((eg < RECOVERY_TOL).sum()), int((ec < RECOVERY_TOL).sum())
+        print(f"recovery of {np.degrees(RECOVERY_MOTION[1]):.1f} deg + "
+              f"{RECOVERY_MOTION[0]} m by {vname}, the {RECOVERY_CLOUDS} "
+              f"largest val clouds ({int(mask.sum(1).min())}-"
+              f"{int(mask.sum(1).max())} points): median point error below "
+              f"{RECOVERY_TOL} m on the card {ng}/{RECOVERY_CLOUDS} "
+              f"({sg:.2f} s), on the CPU {nc}/{RECOVERY_CLOUDS} ({sc:.1f} "
+              f"s); median of medians {np.median(eg):.4f} m")
+        check(abs(ng - nc) <= 1, f"recovery {vname}: card {ng} and CPU {nc} "
+              f"clouds recovered")
+    k2 = multistart_nn_shape(basepath, val)
+    print(f"baselines phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches, k2
+
+
 def _wrappers():
     from alignnet3d_tpu_torch.ops import edge_conv_kernels as ek
     from alignnet3d_tpu_torch.ops import edge_train_kernels as et
@@ -1768,6 +2110,9 @@ def main() -> int:
         # and the two-stage request's, coarse + refiner
         for name, n in trained_runs_phase(basepath, workdir, card).items():
             launches[name] += n
+        # and the classical baselines' through the CLI
+        n, _ = baseline_phase(basepath, workdir, card)
+        launches["nn_argmin"] += n
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

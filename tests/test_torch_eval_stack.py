@@ -281,7 +281,7 @@ def test_timings_mode_prints_ten_timings(source, tmp_path, capsys):
     assert len(lines) == 10 and lines[0].startswith("Timing bs=2: ")
 
 
-@pytest.mark.parametrize("mode", ["held", "icp"])
+@pytest.mark.parametrize("mode", ["held"])
 def test_cli_special_modes_not_ported_raise(source, tmp_path, mode):
     logdir = str(tmp_path / "runs" / "stack")
     path = _config_file(_config(source, logdir, special={"mode": mode}),

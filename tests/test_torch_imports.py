@@ -10,6 +10,8 @@ import re
 import subprocess
 import sys
 
+import pytest
+
 import alignnet3d_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -112,7 +114,25 @@ def test_the_training_slice_is_among_the_modules():
             "alignnet3d_tpu_torch.cli",
             "alignnet3d_tpu_torch.icp.p2plane",
             "alignnet3d_tpu_torch.checkpoint",
-            "alignnet3d_tpu_torch.data.residual"} <= names
+            "alignnet3d_tpu_torch.data.residual",
+            "alignnet3d_tpu_torch.icp.fpfh",
+            "alignnet3d_tpu_torch.icp.fgr",
+            "alignnet3d_tpu_torch.icp.runner"} <= names
+
+
+@pytest.mark.parametrize("module", ["fpfh", "fgr", "runner"])
+def test_classical_baseline_modules_load_alone_with_jax_blocked(module):
+    """The classical baselines (FPFH + RANSAC, FGR, the standalone runner)
+    import on their own with jax, flax, optax and the JAX package blocked,
+    and their sources name none of them."""
+    proc = _run(_BLOCK + f"""
+importlib.import_module("alignnet3d_tpu_torch.icp.{module}")
+print("ok")
+""")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
+    assert not {m.split(".")[0] for m in _imports(
+        os.path.join(PKG_DIR, "icp", f"{module}.py"))} & set(BLOCKED)
 
 
 def test_kernel_bench_and_its_imports_load_with_the_jax_package_blocked():
