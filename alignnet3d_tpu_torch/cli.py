@@ -8,8 +8,11 @@
 
 It runs on the card unless ``--device cpu`` is given. Of the special
 evaluation modes (``evaluation.special.mode``, reference train.py:548-561)
-'icp' runs the standalone classical baselines (``icp/runner.py``) and
-'timings' 10 timed evals at batch 32; 'held' is not ported.
+'icp' runs the standalone classical baselines (``icp/runner.py``),
+'timings' 10 timed evals at batch 32, and 'held' the velocity-only eval of
+Held-style tracking data with the model of ``evaluation.special.held.model``
+(a run directory; its ``model-<eval_epoch>`` checkpoint, ``.pt`` or
+``.msgpack``).
 """
 
 from __future__ import annotations
@@ -65,9 +68,11 @@ def main(argv=None):
                               do_timings=True, override_batch_size=bs)
             return trainer
         if mode == "held":
-            raise NotImplementedError(
-                "evaluation.special.mode 'held' is not ported yet (ROADMAP.md,"
-                " Queue 1: the KITTI/held evaluation toolchain)")
+            trainer = Trainer(cfg, seed=flags.seed, device=flags.device)
+            trainer.train(eval_only=True, eval_epoch=flags.eval_epoch,
+                          eval_only_model_to_load=cfg.evaluation.special.held
+                          .model)
+            return trainer
         raise ValueError(f"unknown special mode {mode!r}")
 
     trainer = Trainer(cfg, seed=flags.seed, device=flags.device)

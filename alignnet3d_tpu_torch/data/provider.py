@@ -16,9 +16,10 @@ after which ``sample_batch`` resamples each cloud with replacement to
 ``num_points`` (reference provider.py:97-98) with a few vectorised gathers.
 Two views rewrite what it draws from: the component filter
 (data.denoise) and the voxel resampling view (data.resample), cached
-under the JAX package's names. Only the numpy path is ported: the native
-C++ assembler (``native/loader.cpp``) raises ``NotImplementedError``
-(ROADMAP.md, Queue 1).
+under the JAX package's names. By default the batch is assembled by the
+port's native C++ assembler (``data/native_loader.py``, a copy of
+``native/loader.cpp``), as in the JAX package, and by numpy when its
+library is unavailable.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import time
 
 import numpy as np
 
+from alignnet3d_tpu_torch.data import native_loader
 from alignnet3d_tpu_torch.data.denoise import component_filter_indices
 from alignnet3d_tpu_torch.geometry import str_to_np
 
@@ -74,12 +76,6 @@ def voxel_dedup_indices(points, cloud_ids, voxel_size: float):
     _, first = np.unique(keys, axis=0, return_index=True)
     first.sort()
     return first
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, Queue 1: the native loader "
-        "binding)")
 
 
 class PackedDataset:
@@ -553,27 +549,42 @@ class PackedDataset:
         return [json.loads(self.metas_json[r]) for r in self.rows(file_indices)]
 
     def sample_batch(self, file_indices, num_points: int,
-                     rng: np.random.Generator, use_native: bool = False):
+                     rng: np.random.Generator, use_native: bool = True):
         """(pcs1, pcs2, translations, rel_angles, pc1centers, pc2centers,
         pc1angles, pc2angles): each cloud resampled with replacement to
         ``num_points`` (empty clouds become zeros, reference
-        provider.py:95-98), the labels as float64. The numpy path of the
-        JAX package's ``sample_batch(..., use_native=False)``, with the
-        same draws from ``rng``."""
-        if use_native:
-            raise _not_ported("the native batch assembler (use_native)")
+        provider.py:95-98), the labels as float64.
+
+        The JAX package's ``sample_batch`` draw for draw: with
+        ``use_native`` (the default) two seeds are drawn from ``rng`` and
+        the native assembler resamples each view from one; when its library
+        is unavailable the numpy path runs after those draws, as the JAX
+        package falls back. The voxel view (enable_voxel_resample) has the
+        uniform arrays' layout, so both paths apply to it unchanged."""
         rows = self.rows(file_indices)
         b = len(rows)
-        out = []
+        views = {}
         for k in (1, 2):
             if self._vox is not None:
-                # the density-equalised copy (enable_voxel_resample)
-                points, voffs, vcounts = self._vox[k]
-                counts, offsets = vcounts[rows], voffs[rows]
+                views[k] = self._vox[k]
             else:
-                points = getattr(self, f"points{k}")
-                counts = getattr(self, f"counts{k}")[rows]
-                offsets = getattr(self, f"offsets{k}")[rows]
+                views[k] = (getattr(self, f"points{k}"),
+                            getattr(self, f"offsets{k}"),
+                            getattr(self, f"counts{k}"))
+        pcs = [None, None]
+        if use_native:
+            seeds = rng.integers(0, 2 ** 63, 2)
+            # None when the library is unavailable (for both views alike)
+            pcs = [native_loader.resample_gather(*views[k], rows, num_points,
+                                                 int(seeds[k - 1]))
+                   for k in (1, 2)]
+        out = []
+        for k, native_pc in zip((1, 2), pcs):
+            if native_pc is not None:
+                out.append(native_pc)
+                continue
+            points, offsets, counts = views[k]
+            counts, offsets = counts[rows], offsets[rows]
             safe_counts = np.maximum(counts, 1)
             pick = (rng.random((b, num_points))
                     * safe_counts[:, None]).astype(np.int64)

@@ -8,8 +8,8 @@ JSON files with a timestamped backup, and per-track velocities.
 
 val/test membership: KITTI-tracklet metas are 'test' when
 ``trackids[0]`` is one of {2, 6, 7, 8, 10}; Synth datasets are 'test' for
-idx >= 1000. ``evaluate_held`` (the velocity-only eval of Held-style
-tracking data) is not ported (ROADMAP.md, Queue 1).
+idx >= 1000. ``evaluate_held`` is the velocity-only eval of Held-style
+tracking data (evaluation.special.mode 'held').
 """
 
 from __future__ import annotations
@@ -318,7 +318,40 @@ def process_velocities(tracks, eval_dir, avg_window):
     return velocities
 
 
-def evaluate_held(*args, **kwargs):
-    raise NotImplementedError(
-        "evaluate_held (evaluation.special.mode = 'held') is not ported yet "
-        "(ROADMAP.md, Queue 1)")
+def evaluate_held(cfg, val_idxs, all_pred_translations, all_pred_angles,
+                  all_gt_translations, all_gt_angles, eval_dir=None,
+                  avg_window=5, mean_time=0, metas=None):
+    """Velocity-only eval of Held-style tracking data (reference
+    evaluation.py:49-78): per track, the XY speed of the predicted
+    translations over the time between the pair's frames (at least
+    0.05 s), averaged over a window of ``avg_window`` frames before and
+    after, one value a line in ``eval_dir/track<id>.txt``. Returns
+    (velocities by track id, {"mean_time": mean_time})."""
+    if metas is None:
+        metas = [_load_meta(cfg, v) for v in val_idxs]
+    tracks = defaultdict(dict)
+    for idx, meta in enumerate(metas):
+        trackid = meta["trackid"]
+        frame2 = meta["frames"][1]
+        timestamp1, timestamp2 = meta["timestamps"]
+        time_passed = max(0.05, timestamp2 - timestamp1)
+        tracks[trackid][frame2] = (
+            np.asarray(all_pred_translations[idx], dtype=np.float64),
+            time_passed)
+
+    velocities = defaultdict(list)
+    for trackid, track in tracks.items():
+        track_translations = list(track.values())
+        if eval_dir is None:
+            continue
+        os.makedirs(eval_dir, exist_ok=True)
+        with open(f"{eval_dir}/track{trackid}.txt", "w") as fh:
+            for idx in range(len(track_translations)):
+                window = track_translations[
+                    max(0, idx - avg_window + 1):idx + avg_window + 1]
+                vels = np.stack([np.asarray(t) / dt for t, dt in window])
+                mean_velocity = np.mean(vels, axis=0)
+                mean_velocity_length = float(np.linalg.norm(mean_velocity[:2]))
+                velocities[trackid].append(mean_velocity_length)
+                fh.write(f"{mean_velocity_length}\n")
+    return velocities, dict(mean_time=mean_time)

@@ -6,7 +6,11 @@ backbones, with ``stack_siamese=True``: both clouds run through the shared
 encoder as one stacked 2B batch, so train-mode BN statistics are shared.
 The module tree carries the flax names (``siamese.transformer1``, its
 backbone ``PointNetBackbone_0`` or ``DGCNNBackbone_0``, ``remaining`` ...),
-and ``forward`` returns the same ``end_points`` keys.
+and ``forward`` returns the same ``end_points`` keys. With
+``completion_points`` m > 0 the encoder also decodes each view's embedding
+into m canonical-frame points (``siamese.completion``, an
+``MLPHead((256, 3 m))``), returned as ``pred_pc{1,2}completions`` (B, m, 3)
+for the completion loss; the serving path does not fold that head.
 
 This is the unfolded model, in float32: the serving path folds its BNs
 (``alignnet3d_tpu_torch.serving``) and is where bf16 is offered.
@@ -145,6 +149,9 @@ class EmbeddingNet(nn.Module):
             with_angles=True)
         self.backbone_name = backbone_name(spec)
         self.add_module(self.backbone_name, _backbone(spec, spec.embedding))
+        self.completion = (
+            MLPHead(spec.embedding[-1], (256, 3 * spec.completion_points))
+            if spec.completion_points > 0 else None)
 
     def forward(self, points: torch.Tensor, momentum: float):
         spec = self.spec
@@ -158,7 +165,14 @@ class EmbeddingNet(nn.Module):
                                     residual_scale=np.pi / spec.num_bins)
         normalized = rotate_points_z(points - s2_center[:, None, :], -s2_angles)
         embedding = getattr(self, self.backbone_name)(normalized, momentum)
-        return embedding, s1_center, s2_center, s2_angle_logits
+        completion = None
+        if self.completion is not None:
+            # canonical-frame shape completion decoded from the embedding
+            # alone, so matching the canonical target pulls s2_center and
+            # s2_angles (through ``normalized``) onto the shape
+            comp = self.completion(embedding, momentum)
+            completion = comp.reshape(comp.shape[0], spec.completion_points, 3)
+        return embedding, s1_center, s2_center, s2_angle_logits, completion
 
 
 class AlignNet(nn.Module):
@@ -171,10 +185,6 @@ class AlignNet(nn.Module):
         if not spec.stack_siamese:
             raise NotImplementedError(
                 "only stack_siamese=True is ported (ROADMAP.md, Queue 1)")
-        if spec.completion_points:
-            raise NotImplementedError(
-                "the completion head is not ported yet (ROADMAP.md, Queue 1: "
-                "additions off the main path)")
         if spec.dtype != torch.float32:
             raise NotImplementedError(
                 "the unfolded model runs in float32; bf16 serving goes "
@@ -190,10 +200,10 @@ class AlignNet(nn.Module):
     def forward(self, pcs1: torch.Tensor, pcs2: torch.Tensor,
                 momentum: float = 0.9) -> dict[str, torch.Tensor]:
         b = pcs1.shape[0]
-        emb, s1c, s2c, logits = self.siamese(torch.cat([pcs1, pcs2], dim=0),
-                                             momentum)
+        emb, s1c, s2c, logits, comp = self.siamese(
+            torch.cat([pcs1, pcs2], dim=0), momentum)
         out = self.remaining(torch.cat([emb[:b], emb[b:]], dim=-1), momentum)
-        return {
+        end_points = {
             "pred_s1_pc1centers": s1c[:b],
             "pred_s1_pc2centers": s1c[b:],
             "pred_s2_pc1centers": s2c[:b],
@@ -204,3 +214,7 @@ class AlignNet(nn.Module):
             "pred_translations": out[:, :3] + (s2c[b:] - s2c[:b]),
             "pred_remaining_angle_logits": out[:, 3:],
         }
+        if comp is not None:
+            end_points["pred_pc1completions"] = comp[:b]
+            end_points["pred_pc2completions"] = comp[b:]
+        return end_points

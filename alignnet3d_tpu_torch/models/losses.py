@@ -25,6 +25,7 @@ from alignnet3d_tpu_torch.ops.angle_codec import (
     logits_to_angle,
     soft_angle_targets,
 )
+from alignnet3d_tpu_torch.ops.stable_max import stable_min
 from alignnet3d_tpu_torch.ops.transforms import rotate_points_z, transform_pcs
 
 
@@ -40,8 +41,8 @@ class LossSpec:
     inverted_angle_mode: str = "reference_max"  # 'reference_max' | 'min'
     composite_translation: bool = False
     flip_aware_composite: bool = False
-    # weight of the per-view canonical-completion chamfer term; the
-    # completion head is not ported, so only 0 is taken
+    # weight of the per-view canonical-completion chamfer term (needs the
+    # model's completion head, model.options.completion_points > 0)
     completion_weight: float = 0.0
     center_consistency_weight: float = 0.0
     center_consistency_frame: str = "canonical"  # 'canonical' | 'world'
@@ -135,15 +136,48 @@ def _angle_losses(logits, target_angles, spec: LossSpec) -> torch.Tensor:
     return losses  # (3,): total, class, residual
 
 
+def _sq_chamfer(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Symmetric squared chamfer distance per sample, (B, M, 3) against
+    (B, K, 3) -> (B,): the (B, M, K) squared distances from one ``bmm``
+    (|p|^2 - 2 p.t + |t|^2, clamped at 0), then the mean of the row minima
+    plus the mean of the column minima. The minima give their gradient to
+    the first arg-minimum (``stable_min``), as the JAX package's do."""
+    d2 = (torch.sum(pred ** 2, dim=-1)[:, :, None]
+          - 2.0 * torch.bmm(pred, target.transpose(1, 2))
+          + torch.sum(target ** 2, dim=-1)[:, None, :])
+    d2 = torch.clamp_min(d2, 0.0)
+    return (torch.mean(stable_min(d2, 2), dim=1)
+            + torch.mean(stable_min(d2, 1), dim=1))
+
+
+def _completion_loss(pcs1, pcs2, pc1_centers, pc2_centers, pc1_angles,
+                     pc2_angles, end_points) -> torch.Tensor:
+    """Per-view canonical shape-completion chamfer (a JAX-package addition
+    with no reference analogue). The target is the union of both views in
+    the ground-truth canonical object frame, Rz(-a_i)(p - c_i) (the
+    model's stage-3 convention); each view's completion scores against it
+    and its 180-degree flip about z and keeps the smaller, so a network
+    that canonicalises at theta + pi (accept_inverted_angle) is not
+    penalised."""
+    u1 = rotate_points_z(pcs1 - pc1_centers[:, None, :], -pc1_angles)
+    u2 = rotate_points_z(pcs2 - pc2_centers[:, None, :], -pc2_angles)
+    union = torch.cat([u1, u2], dim=1)  # (B, 2N, 3)
+    union_flip = union * torch.tensor([-1.0, -1.0, 1.0], dtype=union.dtype,
+                                      device=union.device)
+    total = 0.0
+    for key in ("pred_pc1completions", "pred_pc2completions"):
+        comp = end_points[key]
+        cd = torch.minimum(_sq_chamfer(comp, union),
+                           _sq_chamfer(comp, union_flip))
+        total = total + 0.5 * torch.mean(cd)
+    return total
+
+
 def loss_separate(pcs1, pcs2, translations, rel_angles, pc1_centers,
                   pc2_centers, pc1_angles, pc2_angles, end_points,
                   spec: LossSpec):
     """Multi-stage loss (reference _get_loss_separate, tp8.py:304-354).
     Returns (scalar loss, aux dict of per-stage scalars for logging)."""
-    if spec.completion_weight > 0.0:
-        raise NotImplementedError(
-            "completion_weight > 0 needs the completion head, which is not "
-            "ported (ROADMAP.md, Queue 1)")
     batch_size = translations.shape[0]
     pc1_angles = pc1_angles.reshape(-1)
     pc2_angles = pc2_angles.reshape(-1)
@@ -213,6 +247,15 @@ def loss_separate(pcs1, pcs2, translations, rel_angles, pc1_centers,
                             + spec.center_consistency_weight * cons_loss)
     loss_angle = esf * s2_a + a3[0]
     loss = loss_translation + spec.angle_factor * loss_angle
+    comp_loss = None
+    if spec.completion_weight > 0.0:
+        if "pred_pc1completions" not in end_points:
+            raise ValueError(
+                "completion_weight > 0 requires model.options."
+                "completion_points > 0 (no completion head in end_points)")
+        comp_loss = _completion_loss(pcs1, pcs2, pc1_centers, pc2_centers,
+                                     pc1_angles, pc2_angles, end_points)
+        loss = loss + spec.completion_weight * comp_loss
     # the reference divides the batch-mean loss by the batch size again
     # (tp8.py:334); it only rescales the learning rate
     per_transform_loss = loss / batch_size
@@ -234,6 +277,8 @@ def loss_separate(pcs1, pcs2, translations, rel_angles, pc1_centers,
         "losses_stages/stage3_angle_class_loss": a3[1],
         "losses_stages/stage3_angle_residual_loss": a3[2],
     }
+    if comp_loss is not None:
+        aux["losses_stages/completion_loss"] = comp_loss
     if cons_loss is not None:
         aux["losses_stages/center_consistency_loss"] = cons_loss
     return per_transform_loss, aux

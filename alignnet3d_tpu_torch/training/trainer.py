@@ -21,7 +21,13 @@ What it keeps from the reference and the JAX package:
   dataset (data.denoise, data.resample), a gated second network pass
   (evaluation.network_refine), gated ICP refinement with an optional
   cascade of stages (refine_icp, evaluation.refinement*), stored
-  predictions (use_old_results) and timing mode (do_timings).
+  predictions (use_old_results) and timing mode (do_timings);
+- the velocity-only eval of Held-style tracking data
+  (evaluation.special.mode 'held', ``metrics.evaluate_held``);
+- ``tpu.profile`` = {"dir", "steps"}: a profiler trace of steps 1 to
+  ``steps`` of epoch 0 (step 0 is skipped, as in the JAX package), here a
+  ``torch.profiler`` Chrome trace (host and, on the card, CUDA activity)
+  written under ``dir``.
 
 In PyTorch: checkpoints are written as ``.pt`` (``checkpoint.py``), named
 as the JAX package's with ``.pt`` for ``.msgpack``; every restore reads
@@ -29,14 +35,15 @@ either format, a name without a suffix taking ``.pt`` when it exists, else
 ``.msgpack``, so a run of the JAX package resumes, evaluates, fine-tunes
 or refines here. The input jitter (sigma 0.01, clipped at 0.05)
 is drawn on the device from a ``torch.Generator`` seeded from ``seed``,
-and dropout from another. Batches come from the ``PackedDataset`` numpy
-path behind a background prefetch thread; the per-step scalars stay on
-the device until one readback at the end of the epoch.
+and dropout from another. Batches come from ``PackedDataset.sample_batch``
+(the native assembler by default, as in the JAX package) behind a
+background prefetch thread; the per-step scalars stay on the device until
+one readback at the end of the epoch.
 
-Options the port does not run (evaluation.special modes other than
-'timings', tpu.profile) raise ``NotImplementedError``
-naming their ROADMAP item; the mesh and ``tpu.steps_per_dispatch`` are
-TPU-only and have no counterpart here.
+The standalone baselines (evaluation.special.mode 'icp') run through the
+CLI (``icp/runner.py``), not through ``Trainer``, which refuses them; the
+mesh and ``tpu.steps_per_dispatch`` are TPU-only and have no counterpart
+here.
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.profiler
 
 from alignnet3d_tpu_torch import checkpoint
 from alignnet3d_tpu_torch.data import provider
@@ -72,8 +80,6 @@ from alignnet3d_tpu_torch.training import schedules
 from alignnet3d_tpu_torch.weights import init_state_dict
 
 logger = logging.getLogger("alignnet3d_tpu_torch")
-
-_ROADMAP = "ROADMAP.md, Queue 1"
 
 
 def setup_logging(logdir: str):
@@ -157,17 +163,41 @@ def cascade_stage_kwargs(base_kwargs: dict, stage: dict) -> dict:
     return kwargs
 
 
-def _check_ported(cfg):
-    """Raise on the options this port does not run yet."""
-    unported = []
+def _check_mode(cfg):
+    """Raise on a special evaluation mode that ``Trainer`` does not run."""
     ev = cfg.evaluation
-    if ev.has("special") and ev.special.mode != "timings":
-        unported.append(f"evaluation.special (mode {ev.special.mode!r})")
-    if cfg.has("tpu") and cfg.tpu.has("profile"):
-        unported.append("tpu.profile")
-    if unported:
+    if ev.has("special") and ev.special.mode not in ("timings", "held"):
         raise NotImplementedError(
-            f"{', '.join(unported)}: not ported yet ({_ROADMAP})")
+            f"evaluation.special (mode {ev.special.mode!r}) does not run "
+            f"through Trainer: 'icp' runs through alignnet3d_tpu_torch.cli "
+            f"(icp/runner.py)")
+
+
+class _StepProfile:
+    """A ``torch.profiler`` trace of a run of training steps, written as
+    a Chrome trace under ``directory`` when it stops."""
+
+    def __init__(self, directory: str, device: torch.device):
+        self.directory = directory
+        self.device = device
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self._prof = torch.profiler.profile(activities=activities)
+        self._prof.start()
+
+    def stop(self, first: int, last: int) -> str:
+        """End the trace after the steps ``first``..``last`` of epoch 0;
+        returns the trace file's path."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._prof.stop()
+        os.makedirs(self.directory, exist_ok=True)
+        path = os.path.join(self.directory,
+                            f"train_epoch0_steps{first}-{last}.json")
+        self._prof.export_chrome_trace(path)
+        logger.info(f"profiler trace written to {path}")
+        return path
 
 
 class Trainer:
@@ -177,7 +207,7 @@ class Trainer:
 
     def __init__(self, cfg: Any, seed: int = 0, *,
                  device: torch.device | str):
-        _check_ported(cfg)
+        _check_mode(cfg)
         self.cfg = cfg
         self.seed = seed
         self.device = torch.device(device)
@@ -222,6 +252,8 @@ class Trainer:
         # at (optax's ScaleByScheduleState.count): it equals ``step`` but
         # for a pretraining restore, which resets ``step`` only
         self.schedule_count = 0
+        # the trace files written by tpu.profile
+        self.profile_traces: list[str] = []
 
     # ------------------------------------------------------------ building
 
@@ -348,7 +380,8 @@ class Trainer:
 
     def train_one_epoch(self, epoch: int, writer: ScalarWriter):
         """Shuffled drop-remainder epoch (reference train.py:335-383), with
-        a guard that stops the run on a non-finite loss."""
+        a guard that stops the run on a non-finite loss, and in epoch 0 the
+        ``tpu.profile`` trace of steps 1 to ``tpu.profile.steps``."""
         epoch_rng = self._epoch_rng(1, epoch)
         idxs = np.asarray(self.train_indices).copy()
         epoch_rng.shuffle(idxs)
@@ -356,15 +389,29 @@ class Trainer:
         bs = self.batch_size
         prefetch = (self.cfg.tpu.prefetch_batches if self.cfg.has("tpu")
                     else 2)
+        profile_cfg = (self.cfg.tpu.profile if self.cfg.has("tpu")
+                       and self.cfg.tpu.has("profile") else None)
+        profile_steps = (int(profile_cfg.steps)
+                         if profile_cfg is not None and epoch == 0 else 0)
 
         def make(i):
             return self._make_batch(idxs[i * bs:(i + 1) * bs], rng=epoch_rng)
 
         step_metrics = []
-        for batch in progress(
-                provider.PrefetchIterator(make, num_batches, prefetch),
-                desc=f"train epoch {epoch}", total=num_batches):
-            step_metrics.append(self.train_step(batch))
+        profile = None
+        try:
+            for batch_idx, batch in enumerate(progress(
+                    provider.PrefetchIterator(make, num_batches, prefetch),
+                    desc=f"train epoch {epoch}", total=num_batches)):
+                if profile_steps and batch_idx == 1:  # step 0 warms up
+                    profile = _StepProfile(profile_cfg.dir, self.device)
+                step_metrics.append(self.train_step(batch))
+                if profile is not None and batch_idx >= profile_steps:
+                    self.profile_traces.append(profile.stop(1, batch_idx))
+                    profile = None
+        finally:
+            if profile is not None:  # the epoch ended first, or a step raised
+                self.profile_traces.append(profile.stop(1, batch_idx))
         if not step_metrics:
             return
         keys = list(step_metrics[0])
@@ -628,10 +675,17 @@ class Trainer:
 
         mean_loss = loss_sum / num_full_batches if num_full_batches else 0.0
         mean_time = cumulated_times / float(n_val)
+        held = (cfg.evaluation.has("special")
+                and cfg.evaluation.special.mode == "held")
+        metas = self.dataset.metas(val_idxs)
         if do_timings:
             print(f"Timing bs={batch_size}: {mean_time}")
-        metas = self.dataset.metas(val_idxs)
-        for accept_inverted, writer in (() if do_timings else (
+        elif held:
+            evaluation.evaluate_held(
+                cfg, val_idxs, P["pred_translations"], P["pred_angles"],
+                G["gt_translations"], G["gt_angles"], eval_dir=eval_dir,
+                mean_time=mean_time, metas=metas)
+        for accept_inverted, writer in (() if do_timings or held else (
                 (False, val_writer), (True, val_writer_180))):
             ev = evaluation.evaluate(
                 cfg, val_idxs, P["pred_translations"], P["pred_angles"],

@@ -33,7 +33,6 @@ the two packages step by up to the two applied rates (9.4e-5) each way
 (tests/test_torch_slice.py).
 """
 
-import functools
 import json
 import os
 import shutil
@@ -52,7 +51,6 @@ from torch_parity import SPEC, to_numpy_tree, torch_spec, trained_variables
 import alignnet3d_tpu.training.trainer as jax_trainer_module
 from alignnet3d_tpu.api import Aligner as JaxAligner
 from alignnet3d_tpu.config import config_from_dict as jax_config_from_dict
-from alignnet3d_tpu.data import provider as jp
 from alignnet3d_tpu.training.trainer import Trainer as JaxTrainer
 from alignnet3d_tpu.training.trainer import TrainState
 from alignnet3d_tpu_torch import checkpoint
@@ -355,8 +353,6 @@ def _workspace(source, root, name):
 
 def _jax_train(d):
     trainer = JaxTrainer(jax_config_from_dict(d), seed=0, use_mesh=False)
-    trainer.dataset.sample_batch = functools.partial(
-        jp.PackedDataset.sample_batch, trainer.dataset, use_native=False)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax_trainer_module, "jax", _NO_JITTER_JAX)
         state = trainer.train()

@@ -11,7 +11,6 @@ numbers to 1e-4 absolute and relative, with ``mean_time``, a wall time,
 left out.
 """
 
-import functools
 import json
 import os
 import shutil
@@ -187,11 +186,10 @@ def test_cli_refines_stored_predictions_like_jax(source, tmp_path):
 
 
 @pytest.mark.parametrize("gate", ["default", "wide"])
-def test_network_refine_pass_matches_jax(source, tmp_path, monkeypatch,
-                                         gate):
+def test_network_refine_pass_matches_jax(source, tmp_path, gate):
     """The same seeded weights (the port's init, bridged by to_flax), the
-    same val batches (the JAX side on its numpy path) and the same first
-    pass: the same gated composition."""
+    same val batches (both packages on their default, native path) and the
+    same first pass: the same gated composition."""
     ws = _workspaces(source, tmp_path)
     net_ref = {"enabled": True}
     if gate == "wide":
@@ -206,8 +204,6 @@ def test_network_refine_pass_matches_jax(source, tmp_path, monkeypatch,
     state = jtr.init_state().replace(
         params=jax.tree.map(jnp.asarray, variables["params"]),
         batch_stats=jax.tree.map(jnp.asarray, variables["batch_stats"]))
-    monkeypatch.setattr(jtr.dataset, "sample_batch", functools.partial(
-        jp.PackedDataset.sample_batch, jtr.dataset, use_native=False))
 
     val = list(port.val_indices)
     rng = np.random.default_rng(2)
@@ -279,15 +275,6 @@ def test_timings_mode_prints_ten_timings(source, tmp_path, capsys):
     lines = [ln for ln in capsys.readouterr().out.splitlines()
              if ln.startswith("Timing bs=")]
     assert len(lines) == 10 and lines[0].startswith("Timing bs=2: ")
-
-
-@pytest.mark.parametrize("mode", ["held"])
-def test_cli_special_modes_not_ported_raise(source, tmp_path, mode):
-    logdir = str(tmp_path / "runs" / "stack")
-    path = _config_file(_config(source, logdir, special={"mode": mode}),
-                        logdir)
-    with pytest.raises(NotImplementedError, match=f"'{mode}'.*ROADMAP"):
-        cli.main(["eval_only", "--config", path, "--device", "cpu"])
 
 
 def test_full_stack_trains_and_refines(source, tmp_path):

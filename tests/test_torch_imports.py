@@ -3,7 +3,8 @@ package ``alignnet3d_tpu``: every module of the port (the training modules
 included), and every module that ``chip_smoke.py`` imports, imports in a
 process where they cannot be imported, and no source names them. The port
 keeps its own copies of the numpy host code it shares with the JAX
-package."""
+package, and of its native batch assembler: it never loads the JAX
+package's ``native/libalignnet_loader.so``."""
 
 import os
 import re
@@ -117,7 +118,52 @@ def test_the_training_slice_is_among_the_modules():
             "alignnet3d_tpu_torch.data.residual",
             "alignnet3d_tpu_torch.icp.fpfh",
             "alignnet3d_tpu_torch.icp.fgr",
-            "alignnet3d_tpu_torch.icp.runner"} <= names
+            "alignnet3d_tpu_torch.icp.runner",
+            "alignnet3d_tpu_torch.data.native_loader",
+            "alignnet3d_tpu_torch.data.kitti",
+            "alignnet3d_tpu_torch.data.kitti_generate",
+            "alignnet3d_tpu_torch.data.held"} <= names
+
+
+@pytest.mark.parametrize("module", ["native_loader", "kitti",
+                                    "kitti_generate", "held"])
+def test_data_modules_load_alone_with_jax_blocked(module):
+    """The native batch assembler's binding and the KITTI/Held toolchain
+    import on their own with jax and the JAX package blocked, and their
+    sources name none of them."""
+    proc = _run(_BLOCK + f"""
+importlib.import_module("alignnet3d_tpu_torch.data.{module}")
+print("ok")
+""")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
+    assert not {m.split(".")[0] for m in _imports(
+        os.path.join(PKG_DIR, "data", f"{module}.py"))} & set(BLOCKED)
+
+
+def test_the_port_never_loads_the_jax_packages_native_library(tmp_path):
+    """Every port module imported and a batch assembled by the native
+    path, in a process with the JAX package blocked: the process maps the
+    port's own loader library and not native/libalignnet_loader.so."""
+    proc = _run(_BLOCK + f"""
+import pkgutil
+import numpy as np
+import alignnet3d_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+from alignnet3d_tpu_torch.data import native_loader, provider, synthetic
+base = {str(tmp_path / "ds")!r}
+synthetic.generate_dataset(base, 4, 2, seed=0, vres=8, hres=60)
+batch = provider.PackedDataset(base).sample_batch(
+    [0, 1], 16, np.random.default_rng(0))
+assert batch[0].shape == (2, 16, 3)
+with open("/proc/self/maps") as f:
+    maps = f.read()
+print("port" if str(native_loader.library_path()) in maps else "no-port")
+print("jax" if "libalignnet_loader.so" in maps else "no-jax")
+""")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-2:] == ["port", "no-jax"]
 
 
 @pytest.mark.parametrize("module", ["fpfh", "fgr", "runner"])

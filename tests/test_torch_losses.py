@@ -127,7 +127,8 @@ def test_loss_spec_from_config_and_checks():
         tl.LossSpec(center_consistency_frame="body")
     labels, end_points = _inputs(3)
     ep = {k: torch.from_numpy(v) for k, v in end_points.items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a completion weight without the model's completion head
+    with pytest.raises(ValueError, match="completion_points"):
         tl.loss_separate(*[torch.from_numpy(a) for a in labels], ep,
                          tl.LossSpec(num_bins=NB, completion_weight=1.0))
 

@@ -13,7 +13,6 @@ no jitter and no dropout (jitter and dropout draw from each package's own
 generator).
 """
 
-import functools
 import json
 import os
 import shutil
@@ -27,7 +26,6 @@ import torch
 import alignnet3d_tpu.training.trainer as jax_trainer_module
 from alignnet3d_tpu import geometry as jax_geometry
 from alignnet3d_tpu.config import config_from_dict as jax_config_from_dict
-from alignnet3d_tpu.data import provider as jp
 from alignnet3d_tpu.data import residual as jax_residual
 from alignnet3d_tpu.training.trainer import Trainer as JaxTrainer
 from alignnet3d_tpu_torch import checkpoint, geometry
@@ -151,10 +149,7 @@ def _workspaces(source, root):
 
 
 def _jax_trainer(d):
-    trainer = JaxTrainer(jax_config_from_dict(d), seed=0, use_mesh=False)
-    trainer.dataset.sample_batch = functools.partial(
-        jp.PackedDataset.sample_batch, trainer.dataset, use_native=False)
-    return trainer
+    return JaxTrainer(jax_config_from_dict(d), seed=0, use_mesh=False)
 
 
 def test_trainer_batches_are_the_jax_packages(source, tmp_path):

@@ -1,8 +1,10 @@
 """The port's copies of the training host code against the JAX package:
 ``generate_dataset`` (the same files), ``PackedDataset`` (the same packed
 arrays, and ``sample_batch`` bit-equal to the JAX numpy path from the same
-generator), the meta helpers, ``PrefetchIterator``, ``metrics.evaluate``
-(the same eval.json) and ``save_config``."""
+generator, the native default in tests/test_torch_native_loader.py), the
+meta helpers, ``PrefetchIterator``, ``metrics.evaluate`` (the same
+eval.json), ``metrics.evaluate_held`` (the same track files) and
+``save_config``."""
 
 import filecmp
 import json
@@ -73,7 +75,8 @@ def test_sample_batch_is_bit_equal_to_the_jax_numpy_path(datasets, tmp_path,
             assert filecmp.cmp(os.path.join(bases["jax"], f),
                                os.path.join(bases["port"], f), shallow=False)
     idx = [7, 0, 3, 3, 12, 9]
-    got = td.sample_batch(idx, 64, np.random.default_rng(11))
+    got = td.sample_batch(idx, 64, np.random.default_rng(11),
+                          use_native=False)
     want = jd.sample_batch(idx, 64, np.random.default_rng(11),
                            use_native=False)
     assert len(got) == len(want) == 8
@@ -88,11 +91,34 @@ def test_sample_batch_is_bit_equal_to_the_jax_numpy_path(datasets, tmp_path,
 
 
 def test_unported_provider_paths_raise(datasets):
-    """The native assembler is the one path left (the two views are held
-    to the JAX package in tests/test_torch_views.py)."""
+    """No provider path is left unported: ``use_native=True``, the
+    default, runs the port's native assembler. It draws two seeds from the
+    generator and resamples every cloud from its own points, empty clouds
+    as zeros, with the labels of the numpy path."""
     td = tp.PackedDataset(datasets["port"], cache=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        td.sample_batch([0], 8, np.random.default_rng(0), use_native=True)
+    idx = [7, 0, 3, 3, 12, 9]
+    rng = np.random.default_rng(0)
+    native = td.sample_batch(idx, 48, rng, use_native=True)
+    drawn = np.random.default_rng(0)
+    drawn.integers(0, 2 ** 63, 2)  # the two seeds, and nothing else
+    assert rng.bit_generator.state == drawn.bit_generator.state
+    default = td.sample_batch(idx, 48, np.random.default_rng(0))
+    numpy_path = td.sample_batch(idx, 48, np.random.default_rng(0),
+                                 use_native=False)
+    for a, b in zip(native, default):
+        np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(native[0], numpy_path[0])
+    for a, b in zip(native[2:], numpy_path[2:]):
+        np.testing.assert_array_equal(a, b)
+    rows = td.rows(idx)
+    for k in (1, 2):
+        pcs = native[k - 1]
+        assert pcs.shape == (len(idx), 48, 3) and pcs.dtype == np.float32
+        for b, row in enumerate(rows):
+            o, c = getattr(td, f"offsets{k}")[row], getattr(td,
+                                                            f"counts{k}")[row]
+            src = np.asarray(getattr(td, f"points{k}")[o:o + c])
+            assert (pcs[b][:, None] == src[None]).all(-1).any(-1).all()
 
 
 def test_prefetch_iterator_order_and_errors():
@@ -141,8 +167,24 @@ def test_evaluate_matches_jax(tmp_path, accept_inverted):
         assert json.load(a) == json.load(b)
     vel = sorted(os.listdir(tmp_path / "jax" / "velocities"))
     assert vel == sorted(os.listdir(tmp_path / "port" / "velocities"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.evaluate_held()
+    # the velocity-only eval of Held-style metas: the same track files
+    held_metas = [{"trackid": i % 3, "frames": [i // 3, i // 3 + 1],
+                   "timestamps": [0.1 * (i // 3), 0.1 * (i // 3) + 0.03 * (
+                       i % 2) + 0.1]} for i in range(n)]
+    vel = {}
+    for name, mod, conf in (("jax", jm, jax_config), ("port", tm, tconfig)):
+        vel[name] = mod.evaluate_held(
+            conf.config_from_dict(cfg), list(range(n)), args[0], args[1],
+            args[2], args[3], eval_dir=str(tmp_path / name / "held"),
+            mean_time=0.5, metas=held_metas)
+    assert dict(vel["port"][0]) == dict(vel["jax"][0])
+    assert vel["port"][1] == vel["jax"][1] == {"mean_time": 0.5}
+    names = sorted(os.listdir(tmp_path / "jax" / "held"))
+    assert names == sorted(os.listdir(tmp_path / "port" / "held"))
+    assert len(names) == 3
+    for f in names:
+        assert filecmp.cmp(tmp_path / "jax" / "held" / f,
+                           tmp_path / "port" / "held" / f, shallow=False)
 
 
 def test_geometry_and_config_helpers_match(tmp_path):

@@ -1,9 +1,9 @@
 """The port's ``Trainer`` on the CPU: two epochs on a fixture dataset write
 the JAX package's artifacts (checkpoints as ``.pt``), a second ``train()``
 resumes from the rolling checkpoint, pretrained weights and eval-only runs
-restore, and every option the port does not run raises naming ROADMAP (the
-eval-time stack is held to the JAX package in
-tests/test_torch_eval_stack.py)."""
+restore, ``tpu.profile`` writes a trace, and a special mode that runs
+through the CLI alone raises (the eval-time stack is held to the JAX
+package in tests/test_torch_eval_stack.py)."""
 
 import json
 import os
@@ -133,12 +133,33 @@ def test_eval_only_and_pretrained_restore(dataset, tmp_path):
 
 
 @pytest.mark.parametrize("path,value", [
-    ("evaluation.special", {"mode": "held"}),
-    ("tpu.profile", {"dir": "prof", "steps": 2}),
+    ("evaluation.special", {"mode": "icp"}),
 ])
 def test_unported_config_options_raise(dataset, tmp_path, path, value):
-    with pytest.raises(NotImplementedError, match=f"{path}.*ROADMAP"):
+    """'icp' runs the standalone baselines through the CLI, not Trainer."""
+    with pytest.raises(NotImplementedError, match=f"{path}.*cli"):
         Trainer(_cfg(dataset, tmp_path, **{path: value}), device="cpu")
+
+
+@pytest.mark.parametrize("batch_size,steps,name", [
+    (2, 2, "train_epoch0_steps1-2.json"),  # 4 steps an epoch
+    (4, 3, "train_epoch0_steps1-1.json"),  # 2: the epoch ends first
+])
+def test_tpu_profile_writes_a_trace(dataset, tmp_path, batch_size, steps,
+                                    name):
+    """As the JAX package: steps 1 to ``steps`` of epoch 0 (step 0 warms
+    up), one trace for the run, here a torch.profiler Chrome trace."""
+    prof = tmp_path / "prof"
+    trainer = Trainer(_cfg(dataset, tmp_path / "run", **{
+        "tpu.profile": {"dir": str(prof), "steps": steps},
+        "training.batch_size": batch_size}), seed=0, device="cpu")
+    trainer.train()
+    assert trainer.profile_traces == [str(prof / name)]
+    assert os.listdir(prof) == [name]
+    with open(prof / name) as f:
+        events = json.load(f)["traceEvents"]
+    ops = {e["name"] for e in events if e.get("cat") == "cpu_op"}
+    assert {"aten::addmm", "aten::max"} & ops, sorted(ops)[:20]
 
 
 def test_momentum_optimizer_and_device_argument(dataset, tmp_path):

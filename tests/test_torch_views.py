@@ -1,8 +1,10 @@
 """The port's two dataset views against the JAX package's: the component
 filter (data.denoise) and the voxel resampling view (data.resample) give
 the same counts, points and cache files, and ``sample_batch`` draws
-bit-equal batches from them (the JAX side on its numpy path). Every
-comparison is exact: both run the same numpy code on the same arrays."""
+bit-equal batches from them on the numpy path (``use_native=False`` on
+both sides; the native default is held to the JAX package's in
+tests/test_torch_native_loader.py). Every comparison is exact: both run
+the same numpy code on the same arrays."""
 
 import filecmp
 import os
@@ -103,7 +105,7 @@ def test_voxel_view_and_its_draws_match_jax(pair, cache, denoise):
     for draw in range(2):  # the generator advances alike
         rj, rt = (np.random.default_rng(20 + draw) for _ in range(2))
         want = jd.sample_batch(idx, 48, rj, use_native=False)
-        got = td.sample_batch(idx, 48, rt)
+        got = td.sample_batch(idx, 48, rt, use_native=False)
         for g, w in zip(got, want):
             assert g.dtype == w.dtype
             np.testing.assert_array_equal(g, w)
@@ -135,7 +137,8 @@ def test_empty_cloud_draws_zeros_in_the_voxel_view(tmp_path, source):
         ds.enable_voxel_resample(0.1, cache=False)
     want = jd.sample_batch([1, 0], 16, np.random.default_rng(1),
                            use_native=False)
-    got = td.sample_batch([1, 0], 16, np.random.default_rng(1))
+    got = td.sample_batch([1, 0], 16, np.random.default_rng(1),
+                          use_native=False)
     np.testing.assert_array_equal(got[1], want[1])
     assert not got[1][0].any()
 
