@@ -16,6 +16,8 @@ in the checkout's gitignored ``build/`` tree, under a name hashed from the
 source and the flags, written to a temporary file and renamed into place,
 so that concurrent processes never load a half-written library. No
 ``-march=native``: the library gives the same bits on every x86-64 host.
+``build_host_library`` builds the port's mesh raycaster
+(``csrc/raycast.cpp``, ``data/mesh_raycast.py``) the same way.
 
 ``resample_gather_plain`` is the same function in numpy (splitmix64 in
 ``np.uint64``), for the tests; the main path never calls it.
@@ -37,35 +39,48 @@ import numpy as np
 logger = logging.getLogger("alignnet3d_tpu_torch")
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "loader.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "loader"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build"
+BUILD_DIR = BUILD_ROOT / "loader"
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 ABI_VERSION = 1
 
 
-def library_path() -> Path:
-    """Where the library for the current source and flags lives."""
+def host_library_path(source: Path, stem: str) -> Path:
+    """Where the library of the host source ``source`` lives for its
+    current text and ``CXX_FLAGS``: ``build/<stem>/`` of the checkout."""
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
-    return BUILD_DIR / f"libalignnet3d_loader_{h.hexdigest()[:16]}.so"
+    h.update(source.read_bytes())
+    return BUILD_ROOT / stem / f"libalignnet3d_{stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the library if it is missing; return its path. Raises
-    ``OSError`` or ``subprocess.SubprocessError`` when it cannot."""
-    lib = library_path()
+def build_host_library(source: Path, stem: str) -> Path:
+    """Compile ``source`` with g++ if its library is missing; return its
+    path. Raises ``OSError`` or ``subprocess.SubprocessError`` when it
+    cannot. Also builds the port's mesh raycaster (``data/mesh_raycast``)."""
+    lib = host_library_path(source, stem)
     if lib.exists():
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
     os.close(fd)
     try:
-        subprocess.run(["g++", *CXX_FLAGS, str(SOURCE), "-o", tmp],
+        subprocess.run(["g++", *CXX_FLAGS, str(source), "-o", tmp],
                        check=True, capture_output=True, timeout=120)
         os.replace(tmp, lib)  # atomic: a concurrent loader sees all or none
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
     return lib
+
+
+def library_path() -> Path:
+    """Where the library for the current source and flags lives."""
+    return host_library_path(SOURCE, "loader")
+
+
+def build() -> Path:
+    """Compile the library if it is missing; return its path."""
+    return build_host_library(SOURCE, "loader")
 
 
 @functools.cache

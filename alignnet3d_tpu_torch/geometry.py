@@ -136,3 +136,51 @@ def translate_transform_to_new_center_of_rotation(
     )
     rotated_shift = np.einsum("bij,bj->bi", rotation_matrix_z(a), shift)
     return (-shift + rotated_shift + t).astype(t.dtype)
+
+
+def angle_diff(a, b):
+    """Signed smallest difference ``a - b`` wrapped to (-pi, pi]
+    (reference pointcloud.py:442-444)."""
+    return wrap_angle(np.asarray(a) - np.asarray(b))
+
+
+def heuristic_use_smaller_angle(pred_angles: np.ndarray) -> np.ndarray:
+    """Map any angle in the 'large' half-circle to its 180-degree complement
+    (reference pointcloud.py:301-306). Used for symmetric-object outputs."""
+    a = np.mod(np.asarray(pred_angles, dtype=np.float64), 2.0 * np.pi)
+    large = np.logical_and(a > 0.5 * np.pi, a < 1.5 * np.pi)
+    a = np.where(large, np.mod(a + np.pi, 2.0 * np.pi), a)
+    return np.mod(a + np.pi, 2.0 * np.pi) - np.pi
+
+
+def constrain_transform(transform: np.ndarray) -> np.ndarray:
+    """Project a 4x4 rigid transform onto ground-plane motion: keep the
+    translation, replace the rotation by its best yaw-only approximation.
+
+    Semantics of the reference's Python port of CloudCompare's
+    FilterTransformation (pointcloud.py:1208-1254) with
+    ``constrain_rotation='xy'`` — the same constraint the forked Open3D
+    applies on the C++ side via ``with_constraint`` (icp.py:76).
+    """
+    new_transform = np.eye(4)
+    new_transform[:3, 3] = transform[:3, 3]
+    R = transform[:3, :3]
+    if R[2, 0] < 1.0:
+        theta = -np.arcsin(R[2, 0])
+        cos_theta = np.cos(theta)
+        phi = np.arctan2(R[1, 0] / cos_theta, R[0, 0] / cos_theta)
+        new_transform[0, 0] = np.cos(phi)
+        new_transform[1, 1] = np.cos(phi)
+        new_transform[1, 0] = np.sin(phi)
+        new_transform[0, 1] = -np.sin(phi)
+    return new_transform
+
+
+def decompose_yaw(transform: np.ndarray) -> tuple[np.ndarray, float]:
+    """Extract (translation, yaw) from a (possibly yaw-only) 4x4 transform.
+
+    Equivalent of the reference's ``Rotation.from_dcm(R).as_euler('xyz')[2]``
+    extraction (train.py:476-482) for ground-plane transforms.
+    """
+    yaw = float(np.arctan2(transform[1, 0], transform[0, 0]))
+    return np.asarray(transform[:3, 3], dtype=np.float64), yaw

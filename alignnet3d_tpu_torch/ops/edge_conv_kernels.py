@@ -17,6 +17,14 @@ cores in 3xTF32 (float32 accuracy), so only the (B, N, C2) result reaches
 device memory; ``fused_edge_stage_plain`` is the same function in plain
 PyTorch, used for CPU tensors and as the kernel's reference on the card.
 Both compute in float32.
+
+``fused_edge_stage`` reaches both through the custom op
+``alignnet3d_torch::fused_edge_stage`` (CUDA impl: the kernel; CPU impl:
+``fused_edge_stage_plain``; fake impl: (B, N, C2) float32), so
+``torch.export`` can trace the folded DGCNN forward. The op takes the
+points and the weights, and its CUDA impl computes U and V itself, so
+both impls compute the whole stage from the same inputs. The launch count
+is kept in the CUDA impl.
 """
 
 from __future__ import annotations
@@ -108,14 +116,14 @@ def _check(points, nn_idx, w1, b1, w2, b2):
         raise ValueError("fused_edge_stage: all inputs must be on one device")
 
 
-def fused_edge_stage(points: torch.Tensor, nn_idx: torch.Tensor,
-                     w1: torch.Tensor, b1: torch.Tensor,
-                     w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """The fused stage: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors. ``nn_idx`` entries must lie in [0, N). Returns
-    (B, N, C2) float32."""
-    if points.device.type == "cpu":
-        return fused_edge_stage_plain(points, nn_idx, w1, b1, w2, b2)
+@torch.library.custom_op("alignnet3d_torch::fused_edge_stage",
+                         mutates_args=(), device_types="cuda")
+def _fused_edge_stage_op(points: torch.Tensor, nn_idx: torch.Tensor,
+                         w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                         b2: torch.Tensor) -> torch.Tensor:
+    """The op's CUDA impl: U and V in ``torch.matmul``, then one launch of
+    the kernel per slice of at most ``MAX_CLOUDS`` clouds, counted once a
+    call."""
     _check(points, nn_idx, w1, b1, w2, b2)
     from alignnet3d_tpu_torch.ops._build import load_library
 
@@ -137,6 +145,29 @@ def fused_edge_stage(points: torch.Tensor, nn_idx: torch.Tensor,
                     f"fused_edge_stage: kernel launch failed, CUDA error {rc}")
     fused_edge_stage.launches += 1
     return out
+
+
+@_fused_edge_stage_op.register_kernel("cpu")
+def _fused_edge_stage_cpu(points, nn_idx, w1, b1, w2, b2):
+    return fused_edge_stage_plain(points, nn_idx, w1, b1, w2, b2)
+
+
+@_fused_edge_stage_op.register_fake
+def _fused_edge_stage_fake(points, nn_idx, w1, b1, w2, b2):
+    return points.new_empty((*points.shape[:2], w2.shape[1]),
+                            dtype=torch.float32)
+
+
+def fused_edge_stage(points: torch.Tensor, nn_idx: torch.Tensor,
+                     w1: torch.Tensor, b1: torch.Tensor,
+                     w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """The fused stage through the op ``alignnet3d_torch::fused_edge_stage``:
+    the CUDA kernel for CUDA tensors, the plain version for CPU tensors;
+    any other device is refused. ``nn_idx`` entries must lie in [0, N).
+    Returns (B, N, C2) float32."""
+    if points.device.type not in ("cpu", "cuda"):
+        _check(points, nn_idx, w1, b1, w2, b2)  # raises
+    return _fused_edge_stage_op(points, nn_idx, w1, b1, w2, b2)
 
 
 fused_edge_stage.launches = 0

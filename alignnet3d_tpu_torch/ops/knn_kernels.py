@@ -13,6 +13,11 @@ d2, ties to the lower index; the point itself first among finite points
 (``csrc/knn_points.cu``) and ``knn_points_plain`` evaluate every product
 and sum in the same order with separate roundings, as ``nn_kernels`` does,
 and rank by the same key, so on the card they agree bit for bit.
+
+``knn_points`` reaches both through the custom op
+``alignnet3d_torch::knn_points`` (CUDA impl: the kernel; CPU impl:
+``knn_points_plain``; fake impl: (B, N, k) int64), so ``torch.export`` can
+trace the folded DGCNN forward. The launch count is kept in the CUDA impl.
 """
 
 from __future__ import annotations
@@ -87,13 +92,11 @@ def _check(points, k):
         raise ValueError(f"knn_points: unsupported device {points.device}")
 
 
-def knn_points(points: torch.Tensor, k: int) -> torch.Tensor:
-    """Exact kNN: the CUDA kernel for a CUDA tensor, the plain version for
-    a CPU tensor. Returns (B, N, k) int64."""
-    if points.device.type == "cpu":
-        if not 1 <= k <= points.shape[1]:
-            raise ValueError(f"knn_points: k={k} must be in [1, N]")
-        return knn_points_plain(points, k)
+@torch.library.custom_op("alignnet3d_torch::knn_points", mutates_args=(),
+                         device_types="cuda")
+def _knn_points_op(points: torch.Tensor, k: int) -> torch.Tensor:
+    """The op's CUDA impl: one launch of the kernel per slice of at most
+    ``MAX_CLOUDS`` clouds, counted once a call."""
     _check(points, k)
     from alignnet3d_tpu_torch.ops._build import load_library
 
@@ -110,6 +113,27 @@ def knn_points(points: torch.Tensor, k: int) -> torch.Tensor:
                     f"knn_points: kernel launch failed, CUDA error {rc}")
     knn_points.launches += 1
     return out
+
+
+@_knn_points_op.register_kernel("cpu")
+def _knn_points_cpu(points, k):
+    if not 1 <= k <= points.shape[1]:
+        raise ValueError(f"knn_points: k={k} must be in [1, N]")
+    return knn_points_plain(points, k)
+
+
+@_knn_points_op.register_fake
+def _knn_points_fake(points, k):
+    return points.new_empty((*points.shape[:2], k), dtype=torch.int64)
+
+
+def knn_points(points: torch.Tensor, k: int) -> torch.Tensor:
+    """Exact kNN through the op ``alignnet3d_torch::knn_points``: the CUDA
+    kernel for a CUDA tensor, the plain version for a CPU tensor; any other
+    device is refused. Returns (B, N, k) int64."""
+    if points.device.type not in ("cpu", "cuda"):
+        _check(points, k)  # raises
+    return _knn_points_op(points, k)
 
 
 knn_points.launches = 0

@@ -28,6 +28,10 @@ MAX_LAYERS = 4
 MAX_HIDDEN = 256  # widest input of any layer the kernel takes
 
 
+def _compute_dtype(bf16: bool) -> torch.dtype:
+    return torch.bfloat16 if bf16 else torch.float32
+
+
 def round_to(x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     if compute_dtype == torch.bfloat16:
         return x.to(torch.bfloat16).to(torch.float32)
@@ -82,13 +86,13 @@ def _check(points, weights, biases, compute_dtype):
     return dims
 
 
-def fused_pointnet(points: torch.Tensor, weights: Sequence[torch.Tensor],
-                   biases: Sequence[torch.Tensor],
-                   compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """The fused chain: the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor. Returns (B, F_last) float32."""
-    if points.device.type == "cpu":
-        return fused_pointnet_plain(points, weights, biases, compute_dtype)
+@torch.library.custom_op("alignnet3d_torch::fused_pointnet", mutates_args=(),
+                         device_types="cuda")
+def _fused_pointnet_op(points: torch.Tensor, weights: list[torch.Tensor],
+                       biases: list[torch.Tensor], bf16: bool) -> torch.Tensor:
+    """The op's CUDA impl: one launch of the kernel per slice of at most
+    ``MAX_CLOUDS`` clouds, counted once a call."""
+    compute_dtype = _compute_dtype(bf16)
     dims = _check(points, weights, biases, compute_dtype)
     from alignnet3d_tpu_torch.ops._build import load_library
 
@@ -105,14 +109,38 @@ def fused_pointnet(points: torch.Tensor, weights: Sequence[torch.Tensor],
         for s, e in batch_chunks(points.shape[0]):
             rc = lib.fused_pointnet_launch(
                 points[s:e].data_ptr(), e - s, points.shape[1], n_layers,
-                c_dims, c_ws, c_bs, int(compute_dtype == torch.bfloat16),
-                out[s:e].data_ptr(), stream,
+                c_dims, c_ws, c_bs, int(bf16), out[s:e].data_ptr(), stream,
             )
             if rc != 0:
                 raise RuntimeError(
                     f"fused_pointnet: kernel launch failed, CUDA error {rc}")
     fused_pointnet.launches += 1
     return out
+
+
+@_fused_pointnet_op.register_kernel("cpu")
+def _fused_pointnet_cpu(points, weights, biases, bf16):
+    return fused_pointnet_plain(points, weights, biases, _compute_dtype(bf16))
+
+
+@_fused_pointnet_op.register_fake
+def _fused_pointnet_fake(points, weights, biases, bf16):
+    return points.new_empty((points.shape[0], weights[-1].shape[1]),
+                            dtype=torch.float32)
+
+
+def fused_pointnet(points: torch.Tensor, weights: Sequence[torch.Tensor],
+                   biases: Sequence[torch.Tensor],
+                   compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The fused chain through the op ``alignnet3d_torch::fused_pointnet``:
+    the CUDA kernel for a CUDA tensor, the plain version for a CPU tensor;
+    any other device is refused. Returns (B, F_last) float32."""
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"unsupported compute dtype {compute_dtype}")
+    if points.device.type not in ("cpu", "cuda"):
+        _check(points, weights, biases, compute_dtype)  # raises
+    return _fused_pointnet_op(points, list(weights), list(biases),
+                              compute_dtype == torch.bfloat16)
 
 
 fused_pointnet.launches = 0

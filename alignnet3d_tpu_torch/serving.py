@@ -14,15 +14,22 @@ DGCNN backbone is ``knn_points``, then ``fused_edge_stage`` (both CUDA
 kernels on the card), then its last folded dense layer and the max over
 points.
 
-``build_inference_fn(spec, state_dict, device=...)`` returns a function
-with the eval-mode semantics of ``AlignNet`` in eval mode.
+``FoldedAlignNet`` is that forward as an ``nn.Module``: its folded
+weights are buffers, its devices come from its inputs and buffers, and its
+forward returns the outputs as a tuple in ``OUTPUT_KEYS`` order, so
+``torch.export`` traces it (``export.py``). ``build_inference_fn(spec,
+state_dict, device=...)`` wraps it in ``torch.no_grad`` and returns a
+function with the eval-mode semantics of ``AlignNet``: the eager path and
+the exported path run one forward.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
+from alignnet3d_tpu_torch.export import OUTPUT_KEYS
 from alignnet3d_tpu_torch.models.alignnet import ModelSpec, backbone_name
 from alignnet3d_tpu_torch.ops.angle_codec import logits_to_angle
 from alignnet3d_tpu_torch.ops.edge_conv_kernels import fused_edge_stage
@@ -64,81 +71,145 @@ def _fold_chain(state_dict, prefix: str, n_layers: int, device,
     return weights, biases
 
 
-class _FoldedMLPHead:
+class _FoldedChain(nn.Module):
+    """A folded n-layer dense+BN chain (``_fold_chain``), its weights and
+    biases held as buffers ``w{i}``, ``b{i}``."""
+
+    def __init__(self, state_dict, prefix: str, n_layers: int, device,
+                 compute_dtype, conv: bool = True):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.n_layers = n_layers
+        weights, biases = _fold_chain(state_dict, prefix, n_layers, device,
+                                      conv)
+        for i, (w, b) in enumerate(zip(weights, biases)):
+            self.register_buffer(f"w{i}", w)
+            self.register_buffer(f"b{i}", b)
+
+    def chain(self) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+        return ([getattr(self, f"w{i}") for i in range(self.n_layers)],
+                [getattr(self, f"b{i}") for i in range(self.n_layers)])
+
+
+class _FoldedMLPHead(_FoldedChain):
     """Folded BN hidden layers + the final linear layer (dropout is a no-op
     at inference)."""
 
-    def __init__(self, state_dict, prefix: str, n_hidden: int, device):
-        self.weights, self.biases = _fold_chain(state_dict, prefix, n_hidden,
-                                                device, conv=False)
+    def __init__(self, state_dict, prefix: str, n_hidden: int, device,
+                 compute_dtype):
+        super().__init__(state_dict, prefix, n_hidden, device, compute_dtype,
+                         conv=False)
         final = f"{prefix}.fc{n_hidden + 1}"
-        self.w_final = torch.as_tensor(
+        self.register_buffer("w_final", torch.as_tensor(
             np.ascontiguousarray(_np(state_dict, f"{final}.weight").T),
-            device=device)
-        self.b_final = torch.as_tensor(_np(state_dict, f"{final}.bias"),
-                                       device=device)
+            device=device))
+        self.register_buffer("b_final", torch.as_tensor(
+            _np(state_dict, f"{final}.bias"), device=device))
 
-    def __call__(self, x: torch.Tensor, compute_dtype) -> torch.Tensor:
-        h = round_to(x, compute_dtype)
-        for w, b in zip(self.weights, self.biases):
-            h = torch.clamp_min(torch.matmul(h, round_to(w, compute_dtype)) + b,
-                                0.0)
-            h = round_to(h, compute_dtype)
-        return torch.matmul(h, round_to(self.w_final, compute_dtype)) + self.b_final
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.compute_dtype
+        h = round_to(x, dtype)
+        for w, b in zip(*self.chain()):
+            h = torch.clamp_min(torch.matmul(h, round_to(w, dtype)) + b, 0.0)
+            h = round_to(h, dtype)
+        return torch.matmul(h, round_to(self.w_final, dtype)) + self.b_final
 
 
-class _FoldedPointNet:
+class _FoldedPointNet(_FoldedChain):
     """Folded PointNet backbone: one fused relu-dense chain + max."""
 
-    def __init__(self, state_dict, prefix: str, n_layers: int, device):
-        self.weights, self.biases = _fold_chain(state_dict, prefix, n_layers,
-                                                device)
-
-    def __call__(self, points: torch.Tensor, compute_dtype) -> torch.Tensor:
-        return fused_pointnet(points.contiguous(), self.weights, self.biases,
-                              compute_dtype)
+    def forward(self, points: torch.Tensor) -> torch.Tensor:
+        return fused_pointnet(points.contiguous(), *self.chain(),
+                              self.compute_dtype)
 
 
-class _FoldedDGCNN:
+class _FoldedDGCNN(_FoldedChain):
     """Folded DGCNN backbone: the exact kNN graph, the fused edge stage of
     conv1/conv2 (in float32, as the JAX kernel runs it), then conv3 in
     ``torch.matmul`` and the max over points. The reference's 3-layer shape
     (tp8.py:30-46) is the only one any config uses."""
 
+    k = 20
+
     def __init__(self, state_dict, prefix: str, n_layers: int, device,
-                 k: int = 20):
+                 compute_dtype):
         if n_layers != 3:
             raise ValueError("the folded dgcnn path expects 3 conv layers")
-        w, b = _fold_chain(state_dict, prefix, n_layers, device)
-        (self.w1, self.w2, self.w3), (self.b1, self.b2, self.b3) = w, b
-        self.k = k
+        super().__init__(state_dict, prefix, n_layers, device, compute_dtype)
 
-    def __call__(self, points: torch.Tensor, compute_dtype) -> torch.Tensor:
+    def forward(self, points: torch.Tensor) -> torch.Tensor:
+        (w1, w2, w3), (b1, b2, b3) = self.chain()
         x = points.to(torch.float32).contiguous()
         nn_idx = knn_points(x, min(self.k, x.shape[1]))
-        h = fused_edge_stage(x, nn_idx, self.w1, self.b1, self.w2, self.b2)
-        h = torch.matmul(round_to(h, compute_dtype),
-                         round_to(self.w3, compute_dtype))
-        return torch.amax(torch.clamp_min(h + self.b3, 0.0), dim=1)
+        h = fused_edge_stage(x, nn_idx, w1, b1, w2, b2)
+        h = torch.matmul(round_to(h, self.compute_dtype),
+                         round_to(w3, self.compute_dtype))
+        return torch.amax(torch.clamp_min(h + b3, 0.0), dim=1)
 
 
 def _folded_backbone(spec: ModelSpec, state_dict, prefix: str,
-                     n_layers: int, device):
+                     n_layers: int, device, compute_dtype):
     cls = _FoldedDGCNN if spec.backbone == "dgcnn" else _FoldedPointNet
     return cls(state_dict, f"{prefix}.{backbone_name(spec)}", n_layers,
-               device)
+               device, compute_dtype)
 
 
-class _FoldedTransformer:
+class _FoldedTransformer(nn.Module):
     def __init__(self, spec: ModelSpec, state_dict, prefix: str,
-                 n_backbone: int, n_mlp: int, device):
+                 n_backbone: int, n_mlp: int, device, compute_dtype):
+        super().__init__()
         self.backbone = _folded_backbone(spec, state_dict, prefix, n_backbone,
-                                         device)
+                                         device, compute_dtype)
         self.head = _FoldedMLPHead(state_dict, f"{prefix}.MLPHead_0", n_mlp,
-                                   device)
+                                   device, compute_dtype)
 
-    def __call__(self, points: torch.Tensor, compute_dtype) -> torch.Tensor:
-        return self.head(self.backbone(points, compute_dtype), compute_dtype)
+    def forward(self, points: torch.Tensor) -> torch.Tensor:
+        return self.head(self.backbone(points))
+
+
+class FoldedAlignNet(nn.Module):
+    """The folded eval-mode forward over ``state_dict``'s weights on
+    ``device``: ``(pcs1, pcs2)``, each (B, N, 3) float32 on that device, to
+    the outputs in ``OUTPUT_KEYS`` order."""
+
+    def __init__(self, spec: ModelSpec, state_dict,
+                 compute_dtype: torch.dtype = torch.float32, *,
+                 device: torch.device | str):
+        super().__init__()
+        self.num_bins = spec.num_bins
+        self.residual_scale = np.pi / spec.num_bins
+        self.t1 = _FoldedTransformer(spec, state_dict, "siamese.transformer1",
+                                     len(spec.s1_backbone), len(spec.s1_mlp),
+                                     device, compute_dtype)
+        self.t2 = _FoldedTransformer(spec, state_dict, "siamese.transformer2",
+                                     len(spec.s2_backbone), len(spec.s2_mlp),
+                                     device, compute_dtype)
+        self.embed = _folded_backbone(spec, state_dict, "siamese",
+                                      len(spec.embedding), device,
+                                      compute_dtype)
+        self.remaining = _FoldedMLPHead(state_dict, "remaining",
+                                        len(spec.remaining_mlp), device,
+                                        compute_dtype)
+
+    def encode(self, points: torch.Tensor):
+        center_mean = torch.mean(points, dim=1)
+        s1_center = self.t1(points - center_mean[:, None, :])[:, :3] \
+            + center_mean
+        s2_out = self.t2(points - s1_center[:, None, :])
+        s2_center = s2_out[:, :3] + s1_center
+        s2_logits = s2_out[:, 3:]
+        s2_angles = logits_to_angle(s2_logits, self.num_bins,
+                                    self.residual_scale)
+        normalized = rotate_points_z(points - s2_center[:, None, :],
+                                     -s2_angles)
+        return self.embed(normalized), s1_center, s2_center, s2_logits
+
+    def forward(self, pcs1: torch.Tensor, pcs2: torch.Tensor):
+        b = pcs1.shape[0]
+        emb, s1c, s2c, logits = self.encode(torch.cat([pcs1, pcs2], dim=0))
+        out = self.remaining(torch.cat([emb[:b], emb[b:]], dim=-1))
+        return (s1c[:b], s1c[b:], s2c[:b], s2c[b:], logits[:b], logits[b:],
+                out[:, :3] + (s2c[b:] - s2c[:b]), out[:, 3:])
 
 
 def build_inference_fn(spec: ModelSpec, state_dict,
@@ -146,42 +217,10 @@ def build_inference_fn(spec: ModelSpec, state_dict,
                        device: torch.device | str):
     """Return ``fn(pcs1, pcs2) -> end_points`` over folded weights on
     ``device``. pcs are (B, N, 3) float32 tensors on that device."""
-    t1 = _FoldedTransformer(spec, state_dict, "siamese.transformer1",
-                            len(spec.s1_backbone), len(spec.s1_mlp), device)
-    t2 = _FoldedTransformer(spec, state_dict, "siamese.transformer2",
-                            len(spec.s2_backbone), len(spec.s2_mlp), device)
-    embed = _folded_backbone(spec, state_dict, "siamese",
-                             len(spec.embedding), device)
-    remaining = _FoldedMLPHead(state_dict, "remaining",
-                               len(spec.remaining_mlp), device)
-    residual_scale = np.pi / spec.num_bins
+    module = FoldedAlignNet(spec, state_dict, compute_dtype, device=device)
 
-    def encode(points):
-        center_mean = torch.mean(points, dim=1)
-        s1_center = t1(points - center_mean[:, None, :],
-                       compute_dtype)[:, :3] + center_mean
-        s2_out = t2(points - s1_center[:, None, :], compute_dtype)
-        s2_center = s2_out[:, :3] + s1_center
-        s2_logits = s2_out[:, 3:]
-        s2_angles = logits_to_angle(s2_logits, spec.num_bins, residual_scale)
-        normalized = rotate_points_z(points - s2_center[:, None, :], -s2_angles)
-        emb = embed(normalized, compute_dtype)
-        return emb, s1_center, s2_center, s2_logits
-
-    @torch.no_grad()
     def forward(pcs1: torch.Tensor, pcs2: torch.Tensor):
-        b = pcs1.shape[0]
-        emb, s1c, s2c, logits = encode(torch.cat([pcs1, pcs2], dim=0))
-        out = remaining(torch.cat([emb[:b], emb[b:]], dim=-1), compute_dtype)
-        return {
-            "pred_s1_pc1centers": s1c[:b],
-            "pred_s1_pc2centers": s1c[b:],
-            "pred_s2_pc1centers": s2c[:b],
-            "pred_s2_pc2centers": s2c[b:],
-            "pred_pc1angle_logits": logits[:b],
-            "pred_pc2angle_logits": logits[b:],
-            "pred_translations": out[:, :3] + (s2c[b:] - s2c[:b]),
-            "pred_remaining_angle_logits": out[:, 3:],
-        }
+        with torch.no_grad():
+            return dict(zip(OUTPUT_KEYS, module(pcs1, pcs2)))
 
     return forward

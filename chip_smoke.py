@@ -63,7 +63,20 @@ From the root of a checkout, with nothing built beforehand:
     by pair; recovery
     of a 137 degree motion on the 32 largest clouds, card against CPU; and
     kernel 2 at multistart's coarse shape (1,024 x 4,096 points);
-13. prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
+13. exports the folded forward of both models (``alignnet3d_tpu_torch.
+    export``, ``torch.export`` with the kernels as ``torch.library`` custom
+    ops) on the card and on the CPU, and holds every artifact bit-equal to
+    the eager forward on the card at 1, 8 and 128 pairs, counting its
+    kernel launches; runs the card's artifacts on the CPU against the card;
+    times the exported and eager forwards and the requests again (between
+    steps 6 and 7);
+14. generates a SynthCarsMesh dataset through ``python -m
+    alignnet3d_tpu_torch.data.generate`` at the default sensor with the
+    port's g++ raycaster (``csrc/raycast.cpp``), holds two scenes' scans
+    against the numpy sweep and the SynthCars CLI against a direct
+    ``generate_dataset`` call, and serves a flips request of the mesh
+    dataset's val pairs (after step 13);
+15. prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
 
 Any failed phase exits non-zero without the last line. So does a machine
 without a CUDA card.
@@ -189,6 +202,14 @@ KITTI_CARS = 4
 KITTI_FRAMES = 33
 KITTI_CLUTTER = 20_000
 KITTI_DT = 0.1           # s between frames (KITTI's 10 Hz), held timestamps
+GEN_TRAIN, GEN_VAL = 64, 32      # SynthCarsMesh scenes through the CLI
+GEN_BOX_TRAIN, GEN_BOX_VAL = 8, 4  # SynthCars scenes, CLI vs a direct call
+# The native raycaster runs Moller-Trumbore in float32, its numpy sweep in
+# float64: a hit point moves by float32 roundings of t (RAY_ATOL, 1/50 of
+# the scans' 5 cm noise), and a ray that grazes a triangle edge can hit on
+# one side and miss on the other. At most RAY_COUNT_TOL such rays a scan.
+RAY_ATOL = 1e-3          # m
+RAY_COUNT_TOL = 4
 
 
 class SmokeFailure(Exception):
@@ -2452,12 +2473,25 @@ def _answer_gap(t1, c1, a1, t2, c2, a2):
     return np.maximum(np.maximum(dt, dc), _angle_gap(a1, a2))
 
 
+_ROUNDING_DECIDED = {}  # rounding_decided's answers, by request and model
+
+
 def rounding_decided(spec, state, rng_state, pcs1, pcs2, flips: bool):
     """Pairs whose answer hangs on rounding, judged on the CPU run. Returns
     (ties, sensitive): ``ties`` are an argmax of yaw logits within
     TIE_MARGIN, or (with flips) chamfer scores of the two yaw hypotheses
     within TIE_MARGIN of each other; ``sensitive`` are pairs whose answer
-    moves by more than NET_ATOL under a SENS_REL input perturbation."""
+    moves by more than NET_ATOL under a SENS_REL input perturbation. The
+    answer for a request, a model and a generator state is computed once
+    (the export phase asks again for the serving phases' first request)."""
+    key = (spec, id(state), json.dumps(rng_state), id(pcs1), id(pcs2), flips)
+    if key not in _ROUNDING_DECIDED:
+        _ROUNDING_DECIDED[key] = _rounding_decided(spec, state, rng_state,
+                                                   pcs1, pcs2, flips)
+    return _ROUNDING_DECIDED[key]
+
+
+def _rounding_decided(spec, state, rng_state, pcs1, pcs2, flips: bool):
     from alignnet3d_tpu_torch.api import Aligner
     from alignnet3d_tpu_torch.evaluation.decode import decode_pair_outputs
     from alignnet3d_tpu_torch.ops.flip_resolve import resolve_flips
@@ -2581,6 +2615,241 @@ def serve_path(spec, state, kinds, requests, owned):
     return counts
 
 
+def _answers(spec, out, a, b):
+    """Decoded (translations, centres, yaws) of a forward's outputs."""
+    from alignnet3d_tpu_torch.evaluation.decode import decode_pair_outputs
+
+    dec = decode_pair_outputs({k: v.cpu().numpy() for k, v in out.items()},
+                              a, b, spec.num_bins, 1.0, resolve_flips=False,
+                              device="cpu")
+    return dec.translations, dec.s2_pc1centers, dec.angles
+
+
+def _exported_launches(infer, a, b):
+    """The launch counts of one call of an exported program, set to 0 just
+    before it and read just after."""
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    out = infer(a, b)
+    torch.cuda.synchronize()
+    return out, {name: fn.launches for name, fn in wrappers.items()}
+
+
+def export_phase(specs, requests, card: str):
+    """``alignnet3d_tpu_torch.export`` at the full widths of both models:
+    artifacts exported on the card (PointNet f32 and bf16, DGCNN f32) and
+    on the CPU, loaded from bytes; each held bit-equal to the eager
+    ``build_inference_fn`` forward on the card at b = 1, 8 and PAIRS, its
+    kernels' launches counted through the exported program; the card's
+    f32 artifacts run on the CPU and held to the card outside the pairs
+    that rounding decides; the exported and eager forwards timed at PAIRS
+    pairs, and the plain and flips requests served again. Returns the
+    launch counts of the exported programs' calls, by kernel."""
+    from alignnet3d_tpu_torch.api import Aligner
+    from alignnet3d_tpu_torch.export import (OUTPUT_KEYS,
+                                             export_alignment_model,
+                                             load_exported)
+    from alignnet3d_tpu_torch.serving import build_inference_fn
+
+    t_phase = time.perf_counter()
+    owned = {"pointnet": ("fused_pointnet",),
+             "dgcnn": ("knn_points", "fused_edge_stage")}
+    cases = (("pointnet", torch.float32), ("pointnet", torch.bfloat16),
+             ("dgcnn", torch.float32))
+    pcs1, pcs2 = requests[0]
+    total = dict.fromkeys(_wrappers(), 0)
+    for model, dtype in cases:
+        spec, state = specs[model]
+        probe = Aligner(spec, state, batch_size=PAIRS, seed=SEED,
+                        device="cpu")
+        rng_state = probe._rng.bit_generator.state
+        a_np, b_np = probe._resample(pcs1), probe._resample(pcs2)
+        a, b = torch.from_numpy(a_np).cuda(), torch.from_numpy(b_np).cuda()
+        eager = build_inference_fn(spec, state, dtype, device="cuda")
+        sources = [("card", "cuda")]
+        if dtype == torch.float32:
+            sources.append(("CPU", "cpu"))
+        for where, device in sources:
+            t0 = time.perf_counter()
+            blob = export_alignment_model(spec, state, compute_dtype=dtype,
+                                          device=device)
+            t_export = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            infer = load_exported(bytearray(blob), device="cuda")
+            t_load = time.perf_counter() - t0
+            print(f"export {model} {dtype} on the {where}: "
+                  f"{t_export:.2f} s, {len(blob)} bytes; loaded on the card "
+                  f"in {t_load:.2f} s")
+            for n in (1, 8, PAIRS):
+                got, counts = _exported_launches(infer, a[:n], b[:n])
+                ref = eager(a[:n], b[:n])
+                for key in OUTPUT_KEYS:
+                    check(got[key].device.type == "cuda"
+                          and torch.equal(got[key], ref[key]),
+                          f"export {model} {dtype} ({where}) b={n}: {key} "
+                          f"differs from the eager forward")
+                for name in owned[model]:
+                    check(counts[name] == 3,
+                          f"export {model} {dtype} ({where}) b={n}: {name} "
+                          f"launched {counts[name]} times, expected 3")
+                for name, c in counts.items():
+                    total[name] += c
+            print(f"export {model} {dtype} ({where}): bit-equal to the eager "
+                  f"forward at b = 1, 8, {PAIRS}; launches a call {counts}")
+            if where != "card":
+                continue
+            if dtype == torch.float32:
+                ms_exp = cuda_ms(lambda: infer(a, b))
+                ms_eager = cuda_ms(lambda: eager(a, b))
+                print(f"{model} forward, {PAIRS} pairs, {dtype}: exported "
+                      f"{ms_exp:.4f} ms, eager {ms_eager:.4f} ms "
+                      f"(CUDA events; {card})")
+                on_cpu = load_exported(blob, device="cpu")
+                cpu_ans = _answers(spec, on_cpu(a_np, b_np), a_np, b_np)
+                card_ans = _answers(spec, infer(a, b), a_np, b_np)
+                gap = _answer_gap(*card_ans, *cpu_ans)
+                ties, sensitive = rounding_decided(spec, state, rng_state,
+                                                   pcs1, pcs2, False)
+                aside = ties | sensitive
+                print(f"export {model} f32, the card's artifact on the CPU "
+                      f"vs the card: max gap {gap[~aside].max():.3e} over "
+                      f"{int((~aside).sum())} pairs (atol {NET_ATOL}); "
+                      f"{int(aside.sum())} pairs set aside, of those "
+                      f"{int((gap[aside] > NET_ATOL).sum())} differ")
+                check((gap[~aside] <= NET_ATOL).all(),
+                      f"export {model}: the card's artifact on the CPU "
+                      f"disagrees with the card")
+    # the PointNet plain and flips requests again, on a warm server
+    kinds = REQUESTS[:2]
+    aligner = Aligner(*specs["pointnet"], batch_size=PAIRS, seed=SEED + 2,
+                      device="cuda")
+    aligner.align(*requests[1], **kinds[1][1])
+    _, walls, _ = serve(aligner, kinds, requests[:2], torch.cuda.synchronize)
+    print("PointNet requests again: "
+          + ", ".join(f"{name} {w * 1e3:.1f} ms"
+                      for (name, _), w in zip(kinds, walls))
+          + f" ({PAIRS} pairs, host clock; {card})")
+    print(f"export phase: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def _scan_gaps(got, ref):
+    """Per-point gaps of two scans of one ray grid, both in ray order:
+    ray by ray where they hit the same number of rays, else each point's
+    distance to the other scan's nearest (on the card, without cdist's
+    matrix-product shortcut, which loses ~1e-2 m at 10 m)."""
+    if len(got) == len(ref):
+        return np.linalg.norm(got - ref, axis=1)
+    g, r = (torch.from_numpy(np.asarray(x, np.float32)).cuda()
+            for x in (got, ref))
+    mode = "donot_use_mm_for_euclid_dist"
+    return np.concatenate([
+        torch.cat([torch.cdist(c, y, compute_mode=mode).amin(dim=1)
+                   for c in x.split(4096)]).cpu().numpy()
+        for x, y in ((g, r), (r, g))])
+
+
+def generation_phase(workdir: str, spec, state, card: str):
+    """The dataset CLI, ``python -m alignnet3d_tpu_torch.data.generate``:
+    SynthCarsMesh at the default sensor (64 x 1500 rays), GEN_TRAIN +
+    GEN_VAL scenes, through the port's g++ raycaster; 2 scenes' scans held
+    against the numpy sweep; SynthCars through the CLI file-equal to a
+    direct ``generate_dataset`` call; one request of PAIRS pairs with flips
+    over the mesh dataset's val pairs (tiled) through ``Aligner.align``.
+    Returns the request's launch counts."""
+    import filecmp
+
+    from alignnet3d_tpu_torch.api import Aligner
+    from alignnet3d_tpu_torch.data import mesh_raycast as mr
+    from alignnet3d_tpu_torch.data.synthetic import generate_dataset, lidar_rays
+
+    t_phase = time.perf_counter()
+    mesh_dir = os.path.join(workdir, "SynthCarsMesh")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "alignnet3d_tpu_torch.data.generate",
+                    "SynthCarsMesh", "--out", mesh_dir, "--num_train",
+                    str(GEN_TRAIN), "--num_val", str(GEN_VAL)],
+                   cwd=ROOT, check=True, timeout=600)
+    secs = time.perf_counter() - t0
+    scenes = GEN_TRAIN + GEN_VAL
+    print(f"SynthCarsMesh through the CLI: {scenes} scenes (64 x 1500 rays) "
+          f"in {secs:.2f} s, {scenes / secs:.1f} scenes/s (host; {card})")
+    check(mr.get_lib() is not None,
+          "the port's native raycaster (csrc/raycast.cpp) did not build")
+
+    # two scenes' scans, native against the numpy sweep: the CLI's library
+    # (its default seed 0, 50 meshes) and each scene's mesh, scale and poses
+    lib_rng = np.random.default_rng(0 ^ 0x5EED)
+    library = [mr.Mesh(*mr.procedural_car_mesh(lib_rng)) for _ in range(50)]
+    dirs = lidar_rays(64, 1500).astype(np.float32)
+    worst, off, far = 0.0, 0, 0
+    for idx in (0, 1):
+        with open(os.path.join(mesh_dir, "meta", f"{idx:08d}.json")) as f:
+            meta = json.load(f)
+        scene = mr.MeshScene(library[meta["mesh_id"]], seed=meta["seed"],
+                             mesh_scale=meta["mesh_scale"])
+        for pose in (scene.transform.transform_start,
+                     scene.transform.transform_end):
+            posed = scene.mesh.posed(scene.mesh_scale, pose)
+            got = mr.scan_mesh(posed, scene.mesh.faces, dirs)
+            ref = mr._scan_mesh_numpy(posed, scene.mesh.faces, dirs, 120.0)
+            off = max(off, abs(len(got) - len(ref)))
+            gaps = _scan_gaps(got, ref)
+            far = max(far, int((gaps > RAY_ATOL).sum()))
+            worst = max(worst, float(gaps.max()))
+    print(f"raycast, 2 scenes' 4 scans of {len(dirs)} rays: native vs numpy "
+          f"sweep, hit counts differ by at most {off}, at most {far} points "
+          f"a scan lie farther than {RAY_ATOL} m from the other side's "
+          f"(limit {RAY_COUNT_TOL} each); largest gap {worst:.3e} m")
+    check(off <= RAY_COUNT_TOL and far <= RAY_COUNT_TOL,
+          "the native raycaster disagrees with its numpy sweep")
+
+    # SynthCars through the CLI against a direct call
+    cli_dir, direct_dir = (os.path.join(workdir, d)
+                           for d in ("SynthCars_cli", "SynthCars_direct"))
+    subprocess.run([sys.executable, "-m", "alignnet3d_tpu_torch.data.generate",
+                    "SynthCars", "--out", cli_dir, "--num_train",
+                    str(GEN_BOX_TRAIN), "--num_val", str(GEN_BOX_VAL)],
+                   cwd=ROOT, check=True, timeout=600)
+    generate_dataset(direct_dir, num_train=GEN_BOX_TRAIN,
+                     num_val=GEN_BOX_VAL, seed=0, vres=64, hres=1500,
+                     allow_persons=False, second_object_set=False)
+    files = sorted(os.path.relpath(os.path.join(r, f), direct_dir)
+                   for r, _, fs in os.walk(direct_dir) for f in fs)
+    _, mismatch, errors = filecmp.cmpfiles(direct_dir, cli_dir, files,
+                                           shallow=False)
+    print(f"SynthCars through the CLI vs generate_dataset: {len(files)} "
+          f"files, {len(mismatch) + len(errors)} differ")
+    check(not mismatch and not errors and len(files) == 3 * (
+        GEN_BOX_TRAIN + GEN_BOX_VAL) + 2,
+          "the SynthCars CLI differs from generate_dataset")
+
+    # a flips request over the mesh dataset's val pairs
+    pcs1, pcs2 = _val_clouds(mesh_dir)
+    reps = -(-PAIRS // len(pcs1))
+    pcs1, pcs2 = (list(p) * reps for p in (pcs1, pcs2))
+    aligner = Aligner(spec, state, batch_size=PAIRS, seed=SEED,
+                      device="cuda")
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = aligner.align(pcs1[:PAIRS], pcs2[:PAIRS], resolve_flips=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    check(all(np.isfinite(v).all() for v in out.values())
+          and out["transforms"].shape == (PAIRS, 4, 4),
+          "mesh request: non-finite or misshapen answer")
+    check(counts["fused_pointnet"] == 3 and counts["nn_argmin"] == 2,
+          f"mesh request: launches {counts}, expected 3 and 2")
+    print(f"mesh dataset request (flips, {len(_val_clouds(mesh_dir)[0])} val "
+          f"pairs tiled to {PAIRS}): {wall * 1e3:.1f} ms, launches {counts}")
+    print(f"generation phase: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -2654,8 +2923,18 @@ def main() -> int:
             check(counts[name] == expected[name],
                   f"{name}: {counts[name]} launches, expected {expected[name]}")
 
+    # the exported programs' launches of kernels 1, 3 and 4
+    for name, n in export_phase(specs, requests, card).items():
+        if name in launches:
+            launches[name] += n
+
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
+        # and the mesh dataset's request (kernels 1 and 2)
+        for name, n in generation_phase(workdir, *specs["pointnet"],
+                                        card).items():
+            if name in launches:
+                launches[name] += n
         basepath = os.path.join(workdir, "data")
         t0 = time.perf_counter()
         splits = make_dataset(basepath)

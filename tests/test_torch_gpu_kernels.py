@@ -379,6 +379,82 @@ def test_fused_edge_stage_tf32_exact_weights_and_an_infinite_point(sm90,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+def test_fused_pointnet_op_cuda_impl_matches_twin(sm90, bf16):
+    """The custom op called directly (as an exported program calls it):
+    its CUDA impl launches the kernel once and agrees with the twin."""
+    points, weights, biases = _chain(21, 9, 200, (3, 64, 128, 1024), sm90)
+    before = pk.fused_pointnet.launches
+    got = torch.ops.alignnet3d_torch.fused_pointnet(points, weights, biases,
+                                                    bf16)
+    torch.cuda.synchronize()
+    assert pk.fused_pointnet.launches == before + 1
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    tol = 2e-2 if bf16 else 1e-4  # as test_fused_pointnet_matches_twin
+    torch.testing.assert_close(
+        got, pk.fused_pointnet_plain(points, weights, biases, dtype),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_knn_and_edge_stage_ops_cuda_impls_match_twins(sm90):
+    pts = _cloud(22, 3, 300, device=sm90)
+    before = (kk.knn_points.launches, ek.fused_edge_stage.launches)
+    idx = torch.ops.alignnet3d_torch.knn_points(pts, 20)
+    args = _edge_inputs(22, 3, 300, 20, 3, 64, 128, sm90)
+    got = torch.ops.alignnet3d_torch.fused_edge_stage(pts, idx, *args[2:])
+    torch.cuda.synchronize()
+    assert (kk.knn_points.launches, ek.fused_edge_stage.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(idx, kk.knn_points_plain(pts, 20))
+    _same(got, ek.fused_edge_stage_plain(pts, idx, *args[2:]), 1e-5, 1e-5)
+
+
+def _small_spec(backbone):
+    from alignnet3d_tpu_torch.models.alignnet import ModelSpec
+
+    widths = (16, 32, 32) if backbone == "dgcnn" else (16, 32)
+    return ModelSpec(backbone=backbone, num_points=64, num_bins=8,
+                     s1_backbone=widths, s1_mlp=(32,), s2_backbone=widths,
+                     s2_mlp=(32,), embedding=widths, remaining_mlp=(32,))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backbone,where", [
+    ("pointnet", "cuda"), ("pointnet", "cpu"), ("dgcnn", "cuda"),
+    ("dgcnn", "cpu")])
+def test_exported_program_launches_the_kernels(sm90, backbone, where):
+    """An artifact exported on the card or on the CPU, loaded on the card:
+    three launches of each backbone kernel a forward, bit-equal to the
+    eager forward at b = 1 and 6."""
+    from alignnet3d_tpu_torch.export import (OUTPUT_KEYS,
+                                             export_alignment_model,
+                                             load_exported)
+    from alignnet3d_tpu_torch.serving import build_inference_fn
+    from alignnet3d_tpu_torch.weights import init_state_dict
+
+    spec = _small_spec(backbone)
+    state = init_state_dict(spec, seed=3)
+    infer = load_exported(export_alignment_model(
+        spec, state, compute_dtype=torch.float32, device=where), device=sm90)
+    eager = build_inference_fn(spec, state, device=sm90)
+    kernels = ((kk.knn_points, ek.fused_edge_stage) if backbone == "dgcnn"
+               else (pk.fused_pointnet,))
+    rng = np.random.default_rng(4)
+    for b in (1, 6):
+        a, c = (torch.from_numpy(rng.normal(size=(b, 64, 3)).astype(
+            np.float32)).to(sm90) for _ in range(2))
+        for fn in kernels:
+            fn.launches = 0
+        got = infer(a, c)
+        torch.cuda.synchronize()
+        assert [fn.launches for fn in kernels] == [3] * len(kernels)
+        ref = eager(a, c)
+        for key in OUTPUT_KEYS:
+            assert torch.equal(got[key], ref[key]), key
+
+
+@pytest.mark.gpu
 def test_wrappers_refuse_what_the_kernels_do_not_take(sm90):
     points, weights, biases = _chain(2, 2, 16, (3, 8, 16), sm90)
     with pytest.raises(ValueError, match="contiguous"):
@@ -429,13 +505,15 @@ def test_wrappers_refuse_no_batch_for_its_size(kernel):
 def test_cpu_tensors_run_the_twins(monkeypatch):
     pts, args = _cloud(7, 2, 30), _edge_inputs(7, 2, 30, 20, 3, 8, 16, "cpu")
     calls = []
+    # the twins are reached through the custom ops, which return tensors:
+    # each stand-in returns a tensor marked with its own value
     monkeypatch.setattr(kk, "knn_points_plain",
-                        lambda *a: calls.append("knn") or "knn")
+                        lambda *a: calls.append("knn") or torch.full((1,), 3))
     monkeypatch.setattr(ek, "fused_edge_stage_plain",
-                        lambda *a: calls.append("edge") or "edge")
+                        lambda *a: calls.append("edge") or torch.full((1,), 4.))
     before = (kk.knn_points.launches, ek.fused_edge_stage.launches)
-    assert kk.knn_points(pts, 20) == "knn"
-    assert ek.fused_edge_stage(*args) == "edge"
+    assert kk.knn_points(pts, 20).tolist() == [3]
+    assert ek.fused_edge_stage(*args).tolist() == [4.0]
     assert calls == ["knn", "edge"]
     assert (kk.knn_points.launches, ek.fused_edge_stage.launches) == before
 

@@ -197,3 +197,62 @@ print(len({mods!r}))
 """)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip().splitlines()[-1]) == len(mods)
+
+
+def test_the_deployment_and_dataset_modules_are_among_the_modules():
+    """The modules of the export, generation and host-tail slice are part
+    of the package the probes above walk."""
+    import pkgutil
+
+    names = {m.name for m in pkgutil.walk_packages(
+        alignnet3d_tpu_torch.__path__, "alignnet3d_tpu_torch.")}
+    assert {"alignnet3d_tpu_torch.export",
+            "alignnet3d_tpu_torch.data.generate",
+            "alignnet3d_tpu_torch.data.mesh_raycast",
+            "alignnet3d_tpu_torch.evaluation.quickscore",
+            "alignnet3d_tpu_torch.utils.runs",
+            "alignnet3d_tpu_torch.utils.euler",
+            "alignnet3d_tpu_torch.utils.ply",
+            "alignnet3d_tpu_torch.utils.pc_util"} <= names
+
+
+@pytest.mark.parametrize("module", [
+    "export", "data.generate", "data.mesh_raycast", "evaluation.quickscore",
+    "utils.runs", "utils.euler", "utils.ply", "utils.pc_util"])
+def test_new_modules_load_alone_in_a_fresh_process_with_jax_blocked(module):
+    """Each module of the slice imports first and alone in a fresh process
+    with jax, flax, optax and the JAX package blocked, and its source
+    names none of them; ``export`` registers the three custom ops."""
+    proc = _run(_BLOCK + f"""
+importlib.import_module("alignnet3d_tpu_torch.{module}")
+import torch
+ops = [n for n in ("fused_pointnet", "knn_points", "fused_edge_stage")
+       if hasattr(torch.ops.alignnet3d_torch, n)]
+print(ops)
+""")
+    assert proc.returncode == 0, proc.stderr
+    if module == "export":
+        assert proc.stdout.strip().splitlines()[-1] == \
+            "['fused_pointnet', 'knn_points', 'fused_edge_stage']"
+    path = os.path.join(PKG_DIR, *module.split(".")) + ".py"
+    assert not {m.split(".")[0] for m in _imports(path)} & set(BLOCKED)
+
+
+def test_the_port_never_loads_the_jax_packages_raycaster(tmp_path):
+    """A mesh dataset generated by the port's CLI, in a process with the
+    JAX package blocked, maps the port's g++ build of ``csrc/raycast.cpp``
+    and not native/libalignnet_raycast.so."""
+    proc = _run(_BLOCK + f"""
+from alignnet3d_tpu_torch.data import generate, mesh_raycast, native_loader
+generate.main(["SynthCarsMesh", "--out", {str(tmp_path / "mesh")!r},
+               "--num_train", "2", "--num_val", "1", "--vres", "8",
+               "--hres", "90"])
+assert mesh_raycast.get_lib() is not None
+with open("/proc/self/maps") as f:
+    maps = f.read()
+path = native_loader.host_library_path(mesh_raycast.SOURCE, "raycast")
+print("port" if str(path) in maps else "no-port")
+print("jax" if "libalignnet_raycast.so" in maps else "no-jax")
+""")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-2:] == ["port", "no-jax"]
