@@ -13,10 +13,14 @@ kernel for Hopper (sm_90a) under ``csrc/``, built with ``nvcc`` at first
 use (``ops/_build.py``). Each has a plain PyTorch twin in the same module:
 a CPU tensor goes through the twin, a CUDA tensor through the kernel.
 
-Ported so far: the serving path of the PointNet and the DGCNN models
-(``api.Aligner``), their training path (``training/trainer.py``), the
-eval-time refinement stack with the CLI, the residual-alignment task and
-checkpoints of both packages (``checkpoint.py``).
+Ported: the serving path of the PointNet and the DGCNN models
+(``api.Aligner``, int8 included), their training path
+(``training/trainer.py``, bf16 and unstacked Siamese included), data-
+parallel training over several processes (``parallel/``), the eval-time
+refinement stack with the CLI, the residual-alignment task, checkpoints of
+both packages (``checkpoint.py``), the classical baselines, export, the
+dataset generators and the host tools; everything of the JAX package but
+its TPU-only code.
 """
 
 __version__ = "0.1.0"

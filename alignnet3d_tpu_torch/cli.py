@@ -6,7 +6,11 @@
         [--refineICPmethod p2p|p2plane] [--eval_epoch E] [--seed S]
         [--device cuda|cpu]
 
-It runs on the card unless ``--device cpu`` is given. Of the special
+It runs on the card unless ``--device cpu`` is given. With the
+``ALIGNNET_COORDINATOR``, ``ALIGNNET_NUM_PROCS`` and ``ALIGNNET_PROC_ID``
+variables set, it first joins the other processes of a data-parallel run
+(``parallel/multihost.py``), and ``--device cuda`` means this process's
+card. Of the special
 evaluation modes (``evaluation.special.mode``, reference train.py:548-561)
 'icp' runs the standalone classical baselines (``icp/runner.py``),
 'timings' 10 timed evals at batch 32, and 'held' the velocity-only eval of
@@ -47,6 +51,12 @@ def main(argv=None):
     """Run the command; returns the last ``Trainer``, or in 'icp' mode the
     runner's eval dict."""
     flags = build_parser().parse_args(argv)
+
+    # a data-parallel run: join the other processes (no-op without the
+    # ALIGNNET_* variables) before anything touches a device
+    from alignnet3d_tpu_torch.parallel import multihost
+
+    multihost.maybe_initialize()
 
     from alignnet3d_tpu_torch.config import load_config
     from alignnet3d_tpu_torch.training.trainer import Trainer

@@ -539,6 +539,13 @@ class PackedDataset:
             out = np.load(points_file, mmap_mode="r")
         return out, vox_counts
 
+    @staticmethod
+    def shard_indices(indices, host_id: int, num_hosts: int):
+        """Static per-process split of a set of file indices for
+        multi-process data loading: process k takes every num_hosts-th
+        index, and builds batches only from its own shard."""
+        return list(indices)[host_id::num_hosts]
+
     def rows(self, file_indices):
         """Dataset file indices -> packed row numbers."""
         return np.asarray(

@@ -2,8 +2,11 @@
 relative-pose head (reference models/tp8.py:101-158).
 
 Counterpart of ``alignnet3d_tpu/models/alignnet.py``, PointNet and DGCNN
-backbones, with ``stack_siamese=True``: both clouds run through the shared
-encoder as one stacked 2B batch, so train-mode BN statistics are shared.
+backbones. With ``stack_siamese=True`` (the default) both clouds run
+through the shared encoder as one stacked 2B batch, so train-mode BN
+statistics are shared; with ``False`` the encoder runs once a view, as the
+reference graph does, and the second call's BNs start from the running
+statistics the first call moved.
 The module tree carries the flax names (``siamese.transformer1``, its
 backbone ``PointNetBackbone_0`` or ``DGCNNBackbone_0``, ``remaining`` ...),
 and ``forward`` returns the same ``end_points`` keys. With
@@ -12,8 +15,10 @@ into m canonical-frame points (``siamese.completion``, an
 ``MLPHead((256, 3 m))``), returned as ``pred_pc{1,2}completions`` (B, m, 3)
 for the completion loss; the serving path does not fold that head.
 
-This is the unfolded model, in float32: the serving path folds its BNs
-(``alignnet3d_tpu_torch.serving``) and is where bf16 is offered.
+``spec.compute_dtype`` ("float32" or "bfloat16", ``tpu.compute_dtype``)
+is the dtype of the backbones and heads (``models/backbones.py``); the
+centres, the de-rotation and every output are float32. The serving path
+folds the BNs (``alignnet3d_tpu_torch.serving``).
 """
 
 from __future__ import annotations
@@ -110,7 +115,8 @@ def _backbone(spec: ModelSpec, sizes: Sequence[int]) -> nn.Module:
                          approx_knn=spec.dgcnn_approx_knn,
                          knn_impl=spec.dgcnn_knn_impl,
                          fused_train=spec.dgcnn_fused_train,
-                         stable_max_grad=spec.stable_max_grad)
+                         stable_max_grad=spec.stable_max_grad,
+                         dtype=spec.dtype)
 
 
 class TransformerNet(nn.Module):
@@ -125,7 +131,8 @@ class TransformerNet(nn.Module):
         self.backbone_name = backbone_name(spec)
         self.add_module(self.backbone_name, _backbone(spec, backbone_sizes))
         self.MLPHead_0 = MLPHead(backbone_sizes[-1],
-                                 (*mlp_sizes, head_width), dropout_keep)
+                                 (*mlp_sizes, head_width), dropout_keep,
+                                 dtype=spec.dtype)
 
     def forward(self, points: torch.Tensor, momentum: float) -> torch.Tensor:
         feat = getattr(self, self.backbone_name)(points, momentum)
@@ -150,7 +157,8 @@ class EmbeddingNet(nn.Module):
         self.backbone_name = backbone_name(spec)
         self.add_module(self.backbone_name, _backbone(spec, spec.embedding))
         self.completion = (
-            MLPHead(spec.embedding[-1], (256, 3 * spec.completion_points))
+            MLPHead(spec.embedding[-1], (256, 3 * spec.completion_points),
+                    dtype=spec.dtype)
             if spec.completion_points > 0 else None)
 
     def forward(self, points: torch.Tensor, momentum: float):
@@ -161,7 +169,8 @@ class EmbeddingNet(nn.Module):
         s2_out = self.transformer2(points - s1_center[:, None, :], momentum)
         s2_center = s2_out[:, :3] + s1_center
         s2_angle_logits = s2_out[:, 3:]
-        s2_angles = logits_to_angle(s2_angle_logits, spec.num_bins,
+        s2_angles = logits_to_angle(s2_angle_logits.to(torch.float32),
+                                    spec.num_bins,
                                     residual_scale=np.pi / spec.num_bins)
         normalized = rotate_points_z(points - s2_center[:, None, :], -s2_angles)
         embedding = getattr(self, self.backbone_name)(normalized, momentum)
@@ -182,39 +191,41 @@ class AlignNet(nn.Module):
 
     def __init__(self, spec: ModelSpec):
         super().__init__()
-        if not spec.stack_siamese:
-            raise NotImplementedError(
-                "only stack_siamese=True is ported (ROADMAP.md, Queue 1)")
-        if spec.dtype != torch.float32:
-            raise NotImplementedError(
-                "the unfolded model runs in float32; bf16 serving goes "
-                "through alignnet3d_tpu_torch.serving")
         self.spec = spec
         self.siamese = EmbeddingNet(spec)
         self.remaining = MLPHead(
             2 * spec.embedding[-1],
             (*spec.remaining_mlp, 3 + 2 * spec.num_bins),
-            spec.remaining_dropout_keep,
+            spec.remaining_dropout_keep, dtype=spec.dtype,
         )
 
     def forward(self, pcs1: torch.Tensor, pcs2: torch.Tensor,
                 momentum: float = 0.9) -> dict[str, torch.Tensor]:
-        b = pcs1.shape[0]
-        emb, s1c, s2c, logits, comp = self.siamese(
-            torch.cat([pcs1, pcs2], dim=0), momentum)
-        out = self.remaining(torch.cat([emb[:b], emb[b:]], dim=-1), momentum)
+        if self.spec.stack_siamese:
+            b = pcs1.shape[0]
+            stacked = self.siamese(torch.cat([pcs1, pcs2], dim=0), momentum)
+            view1 = [None if t is None else t[:b] for t in stacked]
+            view2 = [None if t is None else t[b:] for t in stacked]
+        else:
+            view1 = self.siamese(pcs1, momentum)
+            view2 = self.siamese(pcs2, momentum)
+        (emb1, s1c1, s2c1, logits1, comp1), (emb2, s1c2, s2c2, logits2,
+                                             comp2) = view1, view2
+        out = self.remaining(torch.cat([emb1, emb2], dim=-1),
+                             momentum).to(torch.float32)
+        f32 = torch.float32
         end_points = {
-            "pred_s1_pc1centers": s1c[:b],
-            "pred_s1_pc2centers": s1c[b:],
-            "pred_s2_pc1centers": s2c[:b],
-            "pred_s2_pc2centers": s2c[b:],
-            "pred_pc1angle_logits": logits[:b],
-            "pred_pc2angle_logits": logits[b:],
+            "pred_s1_pc1centers": s1c1.to(f32),
+            "pred_s1_pc2centers": s1c2.to(f32),
+            "pred_s2_pc1centers": s2c1.to(f32),
+            "pred_s2_pc2centers": s2c2.to(f32),
+            "pred_pc1angle_logits": logits1.to(f32),
+            "pred_pc2angle_logits": logits2.to(f32),
             # translation = head delta + (s2_center2 - s2_center1), tp8.py:155
-            "pred_translations": out[:, :3] + (s2c[b:] - s2c[:b]),
+            "pred_translations": out[:, :3] + (s2c2 - s2c1).to(f32),
             "pred_remaining_angle_logits": out[:, 3:],
         }
-        if comp is not None:
-            end_points["pred_pc1completions"] = comp[:b]
-            end_points["pred_pc2completions"] = comp[b:]
+        if comp1 is not None:
+            end_points["pred_pc1completions"] = comp1.to(f32)
+            end_points["pred_pc2completions"] = comp2.to(f32)
         return end_points

@@ -13,12 +13,36 @@ Counterpart of ``alignnet3d_tpu/models/batchnorm.py``:
 
 The parameter and buffer names (``scale``, ``bias``, ``mean``, ``var``)
 are the flax leaf names, which keeps the weight bridge mechanical.
+
+The statistics are computed in float32 and the output is cast back to the
+input's dtype (bf16 under ``tpu.compute_dtype: "bfloat16"``). With several
+processes (``parallel/multihost.py``) the train-mode statistics are those
+of the global batch, as under the JAX package's data-parallel mesh: every
+process's (sum, sum of squares) go through a differentiable all-reduce,
+so the EMA update agrees on every process.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from alignnet3d_tpu_torch.parallel import multihost
+
+
+def batch_moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Biased batch statistics over all axes but the last (tf.nn.moments:
+    E[x^2] - E[x]^2), over the global batch when several processes share
+    it (each process holds the same number of rows)."""
+    dims = tuple(range(x.dim() - 1))
+    if multihost.process_count() == 1:
+        mean = torch.mean(x, dim=dims)
+        return mean, torch.mean(torch.square(x), dim=dims) - torch.square(mean)
+    count = x.numel() // x.shape[-1] * multihost.process_count()
+    sums = multihost.all_reduce_sum(torch.stack(
+        [torch.sum(x, dim=dims), torch.sum(torch.square(x), dim=dims)]))
+    mean = sums[0] / count
+    return mean, sums[1] / count - torch.square(mean)
 
 
 class EmaBatchNorm(nn.Module):
@@ -35,15 +59,12 @@ class EmaBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, momentum: float = 0.9) -> torch.Tensor:
         xf = x.to(torch.float32)
         if self.training:
-            dims = tuple(range(x.dim() - 1))
-            mean = torch.mean(xf, dim=dims)
-            # tf.nn.moments: biased variance, E[x^2] - E[x]^2
-            var = torch.mean(torch.square(xf), dim=dims) - torch.square(mean)
+            mean, var = batch_moments(xf)
             self.ema_update(mean, var, momentum)
         else:
             mean, var = self.mean, self.var
         y = (xf - mean) * torch.rsqrt(var + self.eps)
-        return y * self.scale + self.bias
+        return (y * self.scale + self.bias).to(x.dtype)
 
     @torch.no_grad()
     def ema_update(self, mean: torch.Tensor, var: torch.Tensor,

@@ -9,6 +9,14 @@ and this port pair them per sample). The reference's inverted-angle
 selection is kept: ``inverted_angle_mode='reference_max'`` keeps the
 LARGER of the losses at theta and theta + pi (tp8.py:288), ``'min'`` the
 smaller.
+
+With several processes (``parallel/multihost.py``) each holds its rows of
+the batch, and every process computes the loss of the GLOBAL batch, as the
+JAX package's data-parallel mesh does: each mean over the batch is a sum
+all-reduced over the processes (``_mean``), so the theta / theta + pi pick
+compares global means, and the division by the batch size takes the global
+batch. The all-reduce's backward sums the cotangents over the processes,
+so ``DistributedDataParallel``'s mean of the gradients is the exact one.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from alignnet3d_tpu_torch.ops.angle_codec import (
 )
 from alignnet3d_tpu_torch.ops.stable_max import stable_min
 from alignnet3d_tpu_torch.ops.transforms import rotate_points_z, transform_pcs
+from alignnet3d_tpu_torch.parallel import multihost
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,12 +95,25 @@ class LossSpec:
             )
 
 
+def _mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of a tensor whose first axis is the batch, over the global
+    batch (each process holds the same number of rows)."""
+    if multihost.process_count() == 1:
+        return torch.mean(x)
+    return (multihost.all_reduce_sum(torch.sum(x))
+            / (x.numel() * multihost.process_count()))
+
+
+def _global_batch_size(x: torch.Tensor) -> int:
+    return x.shape[0] * multihost.process_count()
+
+
 def huber(error: torch.Tensor, delta: float) -> torch.Tensor:
     """Mean huber loss (reference huber_loss, tp8.py:173-178)."""
     abs_error = torch.abs(error)
     quadratic = torch.clamp(abs_error, max=delta)
     linear = abs_error - quadratic
-    return torch.mean(0.5 * torch.square(quadratic) + delta * linear)
+    return _mean(0.5 * torch.square(quadratic) + delta * linear)
 
 
 def _angle_loss(logits: torch.Tensor, target_angles: torch.Tensor,
@@ -110,9 +132,9 @@ def _angle_loss(logits: torch.Tensor, target_angles: torch.Tensor,
         targets_deg = torch.rad2deg(torch.remainder(target_angles, 2.0 * np.pi))
         dist = soft_angle_targets(targets_deg, num_bins,
                                   spec.soft_angle_sigma_deg)
-        class_loss = torch.mean(-torch.sum(dist * logp, dim=-1))
+        class_loss = _mean(-torch.sum(dist * logp, dim=-1))
     else:
-        class_loss = torch.mean(
+        class_loss = _mean(
             -torch.gather(logp, 1, target_classes[:, None].long())[:, 0])
     onehot = F.one_hot(target_classes.long(), num_bins).to(logits.dtype)
     residual_label = target_residuals / (np.pi / num_bins)
@@ -169,7 +191,7 @@ def _completion_loss(pcs1, pcs2, pc1_centers, pc2_centers, pc1_angles,
         comp = end_points[key]
         cd = torch.minimum(_sq_chamfer(comp, union),
                            _sq_chamfer(comp, union_flip))
-        total = total + 0.5 * torch.mean(cd)
+        total = total + 0.5 * _mean(cd)
     return total
 
 
@@ -178,7 +200,7 @@ def loss_separate(pcs1, pcs2, translations, rel_angles, pc1_centers,
                   spec: LossSpec):
     """Multi-stage loss (reference _get_loss_separate, tp8.py:304-354).
     Returns (scalar loss, aux dict of per-stage scalars for logging)."""
-    batch_size = translations.shape[0]
+    batch_size = _global_batch_size(translations)
     pc1_angles = pc1_angles.reshape(-1)
     pc2_angles = pc2_angles.reshape(-1)
     rel_angles = rel_angles.reshape(-1)
@@ -290,7 +312,7 @@ def loss_p2p(pcs1, pcs2, translations, rel_angles, pc1_centers, pc2_centers,
     pcs1 moved by the predicted and by the GT motion, the mean of squared
     per-coordinate norms over the POINT axis (the reference's tf.norm
     axis=1). Its '180' variant equals the first, so it is not computed."""
-    batch_size = translations.shape[0]
+    batch_size = _global_batch_size(translations)
     scale = np.pi / spec.num_bins
     nb = spec.num_bins
     pred_angles = (
@@ -304,7 +326,7 @@ def loss_p2p(pcs1, pcs2, translations, rel_angles, pc1_centers, pc2_centers,
     gt = transform_pcs(pcs1, translations, rel_angles.reshape(-1),
                        pc1_centers)
     point_distances = torch.linalg.vector_norm(pred - gt, dim=1)
-    loss = torch.mean(torch.square(point_distances))
+    loss = _mean(torch.square(point_distances))
     return loss / batch_size, {"losses/p2p": loss}
 
 

@@ -27,6 +27,17 @@ plain version of the kernel's pick of the max over k (fwd, select). Any
 batch runs in one launch a pass. Everything runs in float32, and a NaN
 propagates as in the twin.
 
+With several processes (``parallel/multihost.py``) both BNs take the
+statistics of the global batch, as under the JAX package's data-parallel
+mesh: forward, the stats1 and fwd sums are all-reduced before they become
+(mu, var), with the count taken over the global batch; backward, the bwd2
+sums and the (sa1, sb1) part of bwd_mid's are all-reduced before they
+become the means of the BN gradient. The gradients of the parameters
+(dW2, db2, and the sums that are dg and dbeta) stay this process's own:
+``DistributedDataParallel`` reduces them. The collectives sit between the
+launches; the CUDA sources know nothing of them. The plain version takes
+the same statistics through ``batchnorm.batch_moments``.
+
 dV is scattered with atomics, so on the card df and dW1 may differ between
 two runs at rounding level; every other output is bit-reproducible. The
 backward keeps dy1 = dL/dy1 of every edge, (B N k, C1) float32, from
@@ -37,7 +48,9 @@ from __future__ import annotations
 
 import torch
 
+from alignnet3d_tpu_torch.models.batchnorm import batch_moments
 from alignnet3d_tpu_torch.ops.edge_conv_kernels import _split
+from alignnet3d_tpu_torch.parallel import multihost
 from alignnet3d_tpu_torch.ops.stable_max import stable_max
 
 EPS = 1e-3
@@ -53,9 +66,7 @@ _ROWS_STATS1, _ROWS_BWD2 = 512, 128  # edge / point rows per block
 def _batch_norm_train(x, g, be, eps):
     """Biased batch statistics over all axes but the last, as
     ``EmaBatchNorm`` takes them in train mode: (y, mean, var)."""
-    dims = tuple(range(x.dim() - 1))
-    mean = torch.mean(x, dim=dims)
-    var = torch.mean(torch.square(x), dim=dims) - torch.square(mean)
+    mean, var = batch_moments(x)
     return (x - mean) * torch.rsqrt(var + eps) * g + be, mean, var
 
 
@@ -185,16 +196,20 @@ class _FusedEdgeStageTrain(torch.autograd.Function):
         u, v = (t.contiguous() for t in _split(f, w1, b1))
         b, n, c1 = u.shape
         k, c2 = idx.shape[-1], w2.shape[1]
-        count = b * n * k  # edges, the BN statistics' sample count
-        s1 = _sums("stats1", -(-count // _ROWS_STATS1), 2 * c1,
-                   u, v, idx, b, n, k, c1, _ROWS_STATS1)
+        edges = b * n * k
+        # the BN statistics' sample count: the global batch's edges
+        count = edges * multihost.process_count()
+        s1 = multihost.all_reduce_(_sums(
+            "stats1", -(-edges // _ROWS_STATS1), 2 * c1,
+            u, v, idx, b, n, k, c1, _ROWS_STATS1))
         mu1, var1, bn1 = _bn_table(s1[:c1], s1[c1:], count, g1, be1, eps)
         # the pick's t and pre2 (xs), then out and xhat2 at the pick
         slot = torch.empty((b, n, c2), dtype=torch.int32, device=f.device)
         xs = torch.empty((b, n, c2), dtype=torch.float32, device=f.device)
-        s2 = _sums("fwd", b * -(-n // _PPB_FWD), 2 * c2,
-                   u, v, idx, bn1, w2, b2, g2.contiguous(), b, n, k, c1, c2,
-                   _PPB_FWD, slot, xs)
+        s2 = multihost.all_reduce_(_sums(
+            "fwd", b * -(-n // _PPB_FWD), 2 * c2,
+            u, v, idx, bn1, w2, b2, g2.contiguous(), b, n, k, c1, c2,
+            _PPB_FWD, slot, xs))
         mu2, var2, bn2 = _bn_table(s2[:c2], s2[c2:], count, g2, be2, eps)
         out = torch.empty_like(xs)
         _launch("select", bn2, b, n, c2, xs, out)
@@ -209,20 +224,21 @@ class _FusedEdgeStageTrain(torch.autograd.Function):
         dout = dout.contiguous()
         b, n, c = f.shape
         c1, c2, k = u.shape[-1], w2.shape[1], idx.shape[-1]
-        count = b * n * k
+        edges = b * n * k
+        count = edges * multihost.process_count()
         s = _sums("bwd2", -(-(b * n) // _ROWS_BWD2), 2 * c2,
                   dout, out, xs, b, n, c2, _ROWS_BWD2)
-        sa2, sb2 = s[:c2], s[c2:]
-        m2 = torch.stack([sa2, sb2]) / count
+        sa2, sb2 = s[:c2], s[c2:]  # this process's dbe2, dg2
+        m2 = multihost.all_reduce_(torch.stack([sa2, sb2])) / count
         cols = c1 * c2 + c2 + 2 * c1
-        dy1 = torch.empty((count, c1), dtype=torch.float32, device=f.device)
+        dy1 = torch.empty((edges, c1), dtype=torch.float32, device=f.device)
         s = _sums("bwd_mid", b * -(-n // _PPB_MID), cols,
                   u, v, idx, bn1, w2, b2, bn2, slot, dout, out, m2,
                   b, n, k, c1, c2, _PPB_MID, dy1)
         dw2 = s[:c1 * c2].reshape(c1, c2)
         db2 = s[c1 * c2:c1 * c2 + c2]
         sa1, sb1 = s[c1 * c2 + c2:c1 * c2 + c2 + c1], s[c1 * c2 + c2 + c1:]
-        m1 = torch.stack([sa1, sb1]) / count
+        m1 = multihost.all_reduce_(torch.stack([sa1, sb1])) / count
         du = torch.empty_like(u)
         dv = torch.zeros_like(v)
         _launch("bwd_in", u, v, idx, bn1, m1.contiguous(), dy1, b, n, k, c1,

@@ -1,6 +1,6 @@
 """Serving path: the BN-folded inference engine.
 
-Counterpart of ``alignnet3d_tpu/serving.py`` (no ``quantize``). At serving
+Counterpart of ``alignnet3d_tpu/serving.py``. At serving
 time every BatchNorm is an affine map with frozen statistics and folds into
 the dense layer before it:
 
@@ -13,6 +13,13 @@ de-rotation. A PointNet backbone is one launch of ``fused_pointnet``; a
 DGCNN backbone is ``knn_points``, then ``fused_edge_stage`` (both CUDA
 kernels on the card), then its last folded dense layer and the max over
 points.
+
+``quantize`` (off by default, as in the JAX package, which measured it
+and did not adopt it) runs PointNet chains in dynamic int8
+(``ops/quant.py``): ``"embedding"`` the embedding backbone, ``"backbones"``
+also the s1/s2 backbones; the MLP heads stay in ``compute_dtype``, the
+chains it leaves in float32 stay on ``fused_pointnet``, and the DGCNN
+refuses it.
 
 ``FoldedAlignNet`` is that forward as an ``nn.Module``: its folded
 weights are buffers, its devices come from its inputs and buffers, and its
@@ -35,6 +42,10 @@ from alignnet3d_tpu_torch.ops.angle_codec import logits_to_angle
 from alignnet3d_tpu_torch.ops.edge_conv_kernels import fused_edge_stage
 from alignnet3d_tpu_torch.ops.knn_kernels import knn_points
 from alignnet3d_tpu_torch.ops.pointnet_kernels import fused_pointnet, round_to
+from alignnet3d_tpu_torch.ops.quant import (
+    fused_pointnet_int8,
+    quantize_weights_int8,
+)
 from alignnet3d_tpu_torch.ops.transforms import rotate_points_z
 
 BN_EPS = 1e-3
@@ -123,6 +134,28 @@ class _FoldedPointNet(_FoldedChain):
                               self.compute_dtype)
 
 
+class _Int8PointNet(nn.Module):
+    """Folded PointNet backbone in dynamic int8: per layer the int8 kernel
+    ``q{i}``, its column scales ``s{i}`` and the float32 bias ``b{i}``."""
+
+    def __init__(self, state_dict, prefix: str, n_layers: int, device,
+                 compute_dtype):
+        super().__init__()
+        self.n_layers = n_layers
+        weights, biases = _fold_chain(state_dict, prefix, n_layers, device)
+        for i, ((wq, ws), b) in enumerate(zip(
+                quantize_weights_int8(weights), biases)):
+            self.register_buffer(f"q{i}", wq)
+            self.register_buffer(f"s{i}", ws)
+            self.register_buffer(f"b{i}", b)
+
+    def forward(self, points: torch.Tensor) -> torch.Tensor:
+        n = range(self.n_layers)
+        return fused_pointnet_int8(
+            points, [(getattr(self, f"q{i}"), getattr(self, f"s{i}"))
+                     for i in n], [getattr(self, f"b{i}") for i in n])
+
+
 class _FoldedDGCNN(_FoldedChain):
     """Folded DGCNN backbone: the exact kNN graph, the fused edge stage of
     conv1/conv2 (in float32, as the JAX kernel runs it), then conv3 in
@@ -148,18 +181,21 @@ class _FoldedDGCNN(_FoldedChain):
 
 
 def _folded_backbone(spec: ModelSpec, state_dict, prefix: str,
-                     n_layers: int, device, compute_dtype):
-    cls = _FoldedDGCNN if spec.backbone == "dgcnn" else _FoldedPointNet
+                     n_layers: int, device, compute_dtype,
+                     int8: bool = False):
+    cls = (_FoldedDGCNN if spec.backbone == "dgcnn"
+           else _Int8PointNet if int8 else _FoldedPointNet)
     return cls(state_dict, f"{prefix}.{backbone_name(spec)}", n_layers,
                device, compute_dtype)
 
 
 class _FoldedTransformer(nn.Module):
     def __init__(self, spec: ModelSpec, state_dict, prefix: str,
-                 n_backbone: int, n_mlp: int, device, compute_dtype):
+                 n_backbone: int, n_mlp: int, device, compute_dtype,
+                 int8: bool = False):
         super().__init__()
         self.backbone = _folded_backbone(spec, state_dict, prefix, n_backbone,
-                                         device, compute_dtype)
+                                         device, compute_dtype, int8)
         self.head = _FoldedMLPHead(state_dict, f"{prefix}.MLPHead_0", n_mlp,
                                    device, compute_dtype)
 
@@ -170,23 +206,29 @@ class _FoldedTransformer(nn.Module):
 class FoldedAlignNet(nn.Module):
     """The folded eval-mode forward over ``state_dict``'s weights on
     ``device``: ``(pcs1, pcs2)``, each (B, N, 3) float32 on that device, to
-    the outputs in ``OUTPUT_KEYS`` order."""
+    the outputs in ``OUTPUT_KEYS`` order. ``quantize``: None, "embedding"
+    or "backbones" (PointNet only)."""
 
     def __init__(self, spec: ModelSpec, state_dict,
                  compute_dtype: torch.dtype = torch.float32, *,
-                 device: torch.device | str):
+                 device: torch.device | str, quantize: str | None = None):
         super().__init__()
+        if quantize not in (None, "embedding", "backbones"):
+            raise ValueError(f"unknown quantize scope {quantize!r}")
+        if quantize is not None and spec.backbone == "dgcnn":
+            raise ValueError("int8 serving is pointnet-only")
         self.num_bins = spec.num_bins
         self.residual_scale = np.pi / spec.num_bins
+        int8_bb = quantize == "backbones"
         self.t1 = _FoldedTransformer(spec, state_dict, "siamese.transformer1",
                                      len(spec.s1_backbone), len(spec.s1_mlp),
-                                     device, compute_dtype)
+                                     device, compute_dtype, int8_bb)
         self.t2 = _FoldedTransformer(spec, state_dict, "siamese.transformer2",
                                      len(spec.s2_backbone), len(spec.s2_mlp),
-                                     device, compute_dtype)
+                                     device, compute_dtype, int8_bb)
         self.embed = _folded_backbone(spec, state_dict, "siamese",
                                       len(spec.embedding), device,
-                                      compute_dtype)
+                                      compute_dtype, quantize is not None)
         self.remaining = _FoldedMLPHead(state_dict, "remaining",
                                         len(spec.remaining_mlp), device,
                                         compute_dtype)
@@ -214,10 +256,13 @@ class FoldedAlignNet(nn.Module):
 
 def build_inference_fn(spec: ModelSpec, state_dict,
                        compute_dtype: torch.dtype = torch.float32, *,
-                       device: torch.device | str):
+                       device: torch.device | str,
+                       quantize: str | None = None):
     """Return ``fn(pcs1, pcs2) -> end_points`` over folded weights on
-    ``device``. pcs are (B, N, 3) float32 tensors on that device."""
-    module = FoldedAlignNet(spec, state_dict, compute_dtype, device=device)
+    ``device``. pcs are (B, N, 3) float32 tensors on that device.
+    ``quantize``: None (the default), "embedding" or "backbones"."""
+    module = FoldedAlignNet(spec, state_dict, compute_dtype, device=device,
+                            quantize=quantize)
 
     def forward(pcs1: torch.Tensor, pcs2: torch.Tensor):
         with torch.no_grad():

@@ -40,10 +40,26 @@ and dropout from another. Batches come from ``PackedDataset.sample_batch``
 background prefetch thread; the per-step scalars stay on the device until
 one readback at the end of the epoch.
 
+Several processes (``parallel/multihost.py``, one a card) train one model
+data-parallel, as the JAX package's processes do over its mesh: each takes
+the strided shard of the epoch order (``PackedDataset.shard_indices``) and
+draws its ``batch_size / processes`` rows of each global batch from the
+epoch's generator; the model is wrapped in ``DistributedDataParallel``;
+the BN statistics and the loss are those of the global batch
+(``models/batchnorm.py``, ``models/losses.py``, the fused edge stage), and
+the jitter and dropout are drawn for the global batch on every process,
+each keeping its rows, so P processes take the step one process takes on
+that global batch. Only process 0 writes artifacts, scalar files, the
+config copy and checkpoints; the others log to ``{logdir}/proc{i}``.
+Restores read the file on process 0 and broadcast it. Eval runs each
+process's rows of the full batch and gathers the outputs; flip resolution,
+ICP and the metrics run on process 0, and the network refine pass refuses
+more than one process.
+
 The standalone baselines (evaluation.special.mode 'icp') run through the
 CLI (``icp/runner.py``), not through ``Trainer``, which refuses them; the
-mesh and ``tpu.steps_per_dispatch`` are TPU-only and have no counterpart
-here.
+'mp' mesh axis and ``tpu.steps_per_dispatch`` are TPU-only and have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -59,6 +75,7 @@ from typing import Any
 import numpy as np
 import torch
 import torch.profiler
+from torch.nn.parallel import DistributedDataParallel
 
 from alignnet3d_tpu_torch import checkpoint
 from alignnet3d_tpu_torch.data import provider
@@ -76,6 +93,7 @@ from alignnet3d_tpu_torch.icp.p2point import refine_predictions
 from alignnet3d_tpu_torch.models.alignnet import AlignNet, ModelSpec
 from alignnet3d_tpu_torch.models.backbones import Dropout
 from alignnet3d_tpu_torch.models.losses import LossSpec, get_loss
+from alignnet3d_tpu_torch.parallel import mesh, multihost
 from alignnet3d_tpu_torch.training import schedules
 from alignnet3d_tpu_torch.weights import init_state_dict
 
@@ -202,20 +220,30 @@ class _StepProfile:
 
 class Trainer:
     """``Trainer(cfg, seed, device=...).train()``. ``device`` is required:
-    ``"cuda"`` trains on the card through its kernels, ``"cpu"`` runs the
-    kernels' plain twins."""
+    ``"cuda"`` trains on the card through its kernels (with several
+    processes, this process's card), ``"cpu"`` runs the kernels' plain
+    twins."""
+
+    # this process's rows of a training batch when several processes train
+    _rows: multihost.RowShard | None = None
 
     def __init__(self, cfg: Any, seed: int = 0, *,
                  device: torch.device | str):
         _check_mode(cfg)
         self.cfg = cfg
         self.seed = seed
-        self.device = torch.device(device)
+        self.device = multihost.local_device(device)
         self.spec = ModelSpec.from_config(cfg)
         self.loss_spec = LossSpec.from_config(cfg)
         self.model = AlignNet(self.spec).to(self.device)
         self.logdir = cfg.logging.logdir
         self.batch_size = cfg.training.batch_size
+        # several processes: this one holds 1/num_processes of every batch
+        self.num_processes = multihost.process_count()
+        self.process_index = multihost.process_index()
+        self.is_main_process = self.process_index == 0
+        mesh.data_parallel_width(cfg, self.batch_size, self.num_processes)
+        self.local_batch_size = self.batch_size // self.num_processes
         self.train_indices = provider.getDataFiles(
             f"{cfg.data.basepath}/split/train.txt")
         self.val_indices = provider.getDataFiles(
@@ -243,9 +271,28 @@ class Trainer:
         self._data_rng = np.random.default_rng(seed + 1)
         self._jitter_gen = torch.Generator(self.device).manual_seed(seed + 2)
         dropout_gen = torch.Generator(self.device).manual_seed(seed + 3)
+        # the jitter and the dropout masks are drawn for the global batch,
+        # and each process keeps its rows
+        if self.num_processes > 1:
+            self._rows = multihost.RowShard(
+                self.process_index * self.local_batch_size,
+                self.local_batch_size, self.batch_size)
         for module in self.model.modules():
             if isinstance(module, Dropout):
                 module.generator = dropout_gen
+                module.rows = self._rows
+        # the module a training step runs: the model, or with several
+        # processes its DistributedDataParallel wrapper (which averages the
+        # gradients; each process's BN running statistics are already the
+        # global batch's, so no buffer is broadcast). A completion head
+        # whose loss is off gets no gradient.
+        self._train_module = self.model
+        if self.num_processes > 1:
+            self._train_module = DistributedDataParallel(
+                self.model, broadcast_buffers=False,
+                find_unused_parameters=(
+                    self.spec.completion_points > 0
+                    and self.loss_spec.completion_weight == 0.0))
         self.optimizer = None
         self.step = 0
         # the optimizer's own update count, which the applied LR is read
@@ -287,9 +334,14 @@ class Trainer:
 
     def _jitter(self, pcs: torch.Tensor) -> torch.Tensor:
         """Per-point gaussian jitter, sigma 0.01 clipped at 0.05 (reference
-        provider.py:60-71), drawn on the device."""
-        noise = torch.randn(pcs.shape, generator=self._jitter_gen,
-                            device=self.device)
+        provider.py:60-71), drawn on the device (for the global batch, of
+        which this process keeps its rows)."""
+        def draw(shape):
+            return torch.randn(shape, generator=self._jitter_gen,
+                               device=self.device)
+
+        noise = (draw(pcs.shape) if self._rows is None
+                 else self._rows.take(draw, pcs.shape))
         return pcs + torch.clamp(0.01 * noise, -0.05, 0.05)
 
     def train_step(self, batch) -> dict:
@@ -302,8 +354,8 @@ class Trainer:
                                      self._nbpe)
         logged_lr = schedules.learning_rate(self.step, self.cfg, self._nbpe)
         pcs1, pcs2 = self._jitter(pcs1), self._jitter(pcs2)
-        self.model.train()
-        out = self.model(pcs1, pcs2, momentum=bn_m)
+        self._train_module.train()
+        out = self._train_module(pcs1, pcs2, momentum=bn_m)
         loss, aux = get_loss(pcs1, pcs2, translations, rel_angles, c1, c2,
                              a1, a2, out, spec=self.loss_spec)
         self.optimizer.zero_grad(set_to_none=True)
@@ -321,7 +373,9 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, batch, model=None):
         """(loss, end_points as numpy) of the eval-mode model (by default
-        the trained one)."""
+        the trained one). With several processes ``batch`` is this
+        process's rows, the loss is the global batch's and the end points
+        are every process's rows, gathered in process order."""
         pcs1, pcs2, translations, rel_angles, c1, c2, a1, a2 = \
             self._to_device(batch)
         model = self.model if model is None else model
@@ -329,7 +383,8 @@ class Trainer:
         out = model(pcs1, pcs2)
         loss, _ = get_loss(pcs1, pcs2, translations, rel_angles, c1, c2, a1,
                            a2, out, spec=self.loss_spec)
-        return float(loss), {k: v.cpu().numpy() for k, v in out.items()}
+        return float(loss), {k: multihost.all_gather_rows(v).cpu().numpy()
+                             for k, v in out.items()}
 
     # -------------------------------------------------------- checkpoints
 
@@ -337,19 +392,40 @@ class Trainer:
         return os.path.join(self.logdir, f"{name}.pt")
 
     def save_checkpoint(self, name: str) -> str:
+        """Write the checkpoint ``name`` (process 0 only: every process
+        holds the same state)."""
         path = self._ckpt_path(name)
+        if not self.is_main_process:
+            return path
         checkpoint.save(path, self.model, self.optimizer, self.step,
                         self.schedule_count)
         logger.info(f"Model saved in file: {path}")
         return path
 
+    def _find_checkpoint(self, path: str) -> str | None:
+        """Process 0's ``checkpoint.find(path)``, on every process."""
+        return multihost.broadcast_tree(
+            checkpoint.find(path) if self.is_main_process else None)
+
     def restore_checkpoint(self, path: str, except_step: bool = False):
         """Restore a ``.pt`` or ``.msgpack`` (a path without a suffix takes
         ``.pt`` when it exists, else ``.msgpack``): the weights, the
         optimizer's state and its count, and, unless ``except_step`` (a
-        pretraining restore), the step. Returns the path read."""
-        path = checkpoint.resolve(path)
-        restored = checkpoint.load(path, self.model, self.optimizer)
+        pretraining restore), the step. Returns the path read. Process 0
+        reads the file and broadcasts what it read to the other processes."""
+        found = self._find_checkpoint(path)
+        if found is None:
+            raise FileNotFoundError(f"no checkpoint: {path} on process 0")
+        path = found
+        state = None
+        if self.is_main_process:
+            restored = checkpoint.load(path, self.model, self.optimizer)
+            state = (restored, self.model.state_dict(),
+                     self.optimizer.state_dict())
+        restored, weights, opt_state = multihost.broadcast_tree(state)
+        if not self.is_main_process:
+            self.model.load_state_dict(weights)
+            self.optimizer.load_state_dict(opt_state)
         self.schedule_count = restored["schedule_count"]
         if not except_step:
             if restored["step"] is None:
@@ -386,13 +462,19 @@ class Trainer:
         idxs = np.asarray(self.train_indices).copy()
         epoch_rng.shuffle(idxs)
         num_batches = len(idxs) // self.batch_size
-        bs = self.batch_size
+        if self.num_processes > 1:
+            # this process's shard of the (identically shuffled) epoch
+            # order; it assembles only its own rows of each global batch
+            idxs = np.asarray(provider.PackedDataset.shard_indices(
+                idxs, self.process_index, self.num_processes))
+        bs = self.local_batch_size
         prefetch = (self.cfg.tpu.prefetch_batches if self.cfg.has("tpu")
                     else 2)
         profile_cfg = (self.cfg.tpu.profile if self.cfg.has("tpu")
                        and self.cfg.tpu.has("profile") else None)
         profile_steps = (int(profile_cfg.steps)
-                         if profile_cfg is not None and epoch == 0 else 0)
+                         if profile_cfg is not None and epoch == 0
+                         and self.is_main_process else 0)
 
         def make(i):
             return self._make_batch(idxs[i * bs:(i + 1) * bs], rng=epoch_rng)
@@ -430,8 +512,9 @@ class Trainer:
                 f"non-finite loss at epoch {epoch} step "
                 f"{int(np.argmax(bad))} (value {loss_vals[np.argmax(bad)]}); "
                 f"last good checkpoint is in {self.logdir}")
-        writer.write_rows(range(self.step - num_batches + 1, self.step + 1),
-                          stacked)
+        if writer is not None:
+            writer.write_rows(range(self.step - num_batches + 1,
+                                    self.step + 1), stacked)
         logger.info("train mean loss: %f"
                     % (float(loss_vals.sum()) / num_batches))
 
@@ -578,6 +661,21 @@ class Trainer:
         n_val = len(val_idxs)
         num_batches = int(np.ceil(n_val / batch_size))
         num_full_batches = n_val // batch_size
+        net_ref = (cfg.evaluation.network_refine
+                   if cfg.evaluation.has("network_refine") else None)
+        run_net_ref = (net_ref is not None and net_ref.enabled
+                       and not use_old_results and not do_timings)
+        if self.num_processes > 1:
+            if batch_size % self.num_processes != 0:
+                raise ValueError(f"eval batch size {batch_size} must divide "
+                                 f"over {self.num_processes} processes")
+            # the pass consumes process 0's flip-resolved predictions
+            if run_net_ref:
+                raise ValueError(
+                    "evaluation.network_refine is single-process (pod eval "
+                    "runs the coarse pass everywhere; refine after gather)")
+        local_bs = batch_size // self.num_processes
+        lo = self.process_index * local_bs
         # one fixed stream: a checkpoint gives the same predictions in any
         # eval, and val curves carry no resampling noise
         eval_rng = self._epoch_rng(2)
@@ -591,14 +689,15 @@ class Trainer:
             suffix = f"_{icp_its}" if icp_its != 30 else ""
             eval_dir = f"{eval_dir}/refined_{icp_method}{suffix}"
         self.eval_times = {}
-        if os.path.isdir(eval_dir):
+        if self.is_main_process and os.path.isdir(eval_dir):
             backup = f"{eval_dir}_backup_{int(time.time())}"
             k = 0
             while os.path.exists(backup):
                 k += 1
                 backup = f"{eval_dir}_backup_{int(time.time())}_{k}"
             os.rename(eval_dir, backup)
-        os.makedirs(eval_dir, exist_ok=True)
+        if self.is_main_process:
+            os.makedirs(eval_dir, exist_ok=True)
 
         P = {k: np.empty((n_val, d), dtype=np.float32) for k, d in [
             ("pred_translations", 3), ("pred_angles", 1),
@@ -608,7 +707,7 @@ class Trainer:
         G = {"gt_translations": np.empty((n_val, 3), np.float32),
              "gt_angles": np.empty((n_val, 1), np.float32),
              "gt_pc1centers": np.empty((n_val, 3), np.float32)}
-        if use_old_results:
+        if use_old_results and self.is_main_process:
             # the final transform only; the other five arrays stay unset,
             # as in the JAX package
             for key in ("pred_translations", "pred_angles",
@@ -619,8 +718,10 @@ class Trainer:
         # evaluation.scale_residuals opts into the consistent decode
         residual_scale = (np.pi / nb if cfg.evaluation.has("scale_residuals")
                           and cfg.evaluation.scale_residuals else 1.0)
+        # the flips feed process 0's artifacts only
         resolve_flips = bool(cfg.evaluation.has("resolve_flips")
-                             and cfg.evaluation.resolve_flips)
+                             and cfg.evaluation.resolve_flips
+                             and self.is_main_process)
         loss_sum, cumulated_times = 0.0, 0.0
         for batch_idx in progress(range(num_batches),
                                   desc=f"eval epoch {epoch}",
@@ -630,10 +731,14 @@ class Trainer:
             actual = end - start
             # pad to a full batch (the reference feeds a stale tail)
             padded = val_idxs[start:end] + [val_idxs[0]] * (batch_size - actual)
+            # every process assembles the full batch (its labels and clouds
+            # feed the decode) and runs its own rows of it
             batch = self._make_batch(padded, rng=eval_rng)
             if not use_old_results:
                 t0 = time.time()
-                loss_val, out = self.eval_step(batch)
+                loss_val, out = self.eval_step(
+                    batch if self.num_processes == 1
+                    else tuple(a[lo:lo + local_bs] for a in batch))
                 cumulated_times += time.time() - t0
                 if actual == batch_size:
                     loss_sum += loss_val
@@ -655,10 +760,11 @@ class Trainer:
             G["gt_angles"][start:end] = batch[3][:actual]
             G["gt_pc1centers"][start:end] = batch[4][:actual]
 
-        net_ref = (cfg.evaluation.network_refine
-                   if cfg.evaluation.has("network_refine") else None)
-        if (net_ref is not None and net_ref.enabled and not use_old_results
-                and not do_timings):
+        if not self.is_main_process:
+            # the artifacts, metrics, refinement and scalar rows are process
+            # 0's; the collective work above ran on every process
+            return loss_sum / num_full_batches if num_full_batches else 0.0
+        if run_net_ref:
             # iterations > 1 compose from the GATED chain each pass (P is
             # rewritten in place), so deeper passes stay frame-consistent
             t0 = time.time()
@@ -738,18 +844,22 @@ class Trainer:
         checkpoint; ``do_timings`` runs 10 timed evals an epoch at
         ``override_batch_size``."""
         cfg = self.cfg
-        setup_logging(self.logdir)
-        from alignnet3d_tpu_torch.config import save_config
+        setup_logging(self.logdir if self.is_main_process
+                      else f"{self.logdir}/proc{self.process_index}")
+        train_writer = val_writer = val_writer_180 = None
+        if self.is_main_process:
+            from alignnet3d_tpu_torch.config import save_config
 
-        configcopy = f"{self.logdir}/config.json"
-        if os.path.exists(configcopy):
-            datestr = datetime.datetime.today().strftime("%Y-%m-%d_%H-%M-%S")
-            configcopy = f"{configcopy[:-5]}_{datestr}.json"
-        save_config(configcopy, cfg)
-
-        train_writer = ScalarWriter(f"{self.logdir}/train/scalars.jsonl")
-        val_writer = ScalarWriter(f"{self.logdir}/val/scalars.jsonl")
-        val_writer_180 = ScalarWriter(f"{self.logdir}/val_180/scalars.jsonl")
+            configcopy = f"{self.logdir}/config.json"
+            if os.path.exists(configcopy):
+                datestr = datetime.datetime.today().strftime(
+                    "%Y-%m-%d_%H-%M-%S")
+                configcopy = f"{configcopy[:-5]}_{datestr}.json"
+            save_config(configcopy, cfg)
+            train_writer = ScalarWriter(f"{self.logdir}/train/scalars.jsonl")
+            val_writer = ScalarWriter(f"{self.logdir}/val/scalars.jsonl")
+            val_writer_180 = ScalarWriter(
+                f"{self.logdir}/val_180/scalars.jsonl")
 
         self.init_state()
         start_epoch = 0
@@ -767,7 +877,8 @@ class Trainer:
             start_epoch = int(eval_epoch)
             logger.info(f"Evaluating at epoch {start_epoch}")
         else:
-            rolling = checkpoint.find(os.path.join(self.logdir, "model.ckpt"))
+            rolling = self._find_checkpoint(
+                os.path.join(self.logdir, "model.ckpt"))
             if rolling is not None:
                 self.restore_checkpoint(rolling)
                 if self.step % nbpe != 0:

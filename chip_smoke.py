@@ -30,7 +30,17 @@ From the root of a checkout, with nothing built beforehand:
    ``configs/SynthCars40kDGCNNFusedR4.json`` with ``dgcnn_fused_train`` on,
    through ``Trainer.train()``, counting launches, and compares its first
    step with the unfused path's from the same weights and batch, the edge
-   layers also under the same cotangent;
+   layers also under the same cotangent; then trains it data-parallel
+   (``parallel/multihost.py``): one process on NCCL through the CLI with the
+   ``ALIGNNET_*`` variables against that epoch; two processes on the one
+   card over gloo, 64 rows each: their first step against one process's on
+   the same 128 pairs, an epoch and ``eval_only`` through the CLI (equal
+   parameters, each process's launches of kernels 3 and 5, the eval
+   against one process's); serves the PointNet folded forward in int8
+   (``quantize`` 'embedding' and 'backbones') on the card against the CPU,
+   timed beside float32 and bf16; and holds one training step of the bf16
+   PointNet and fused DGCNN and of the ``stack_siamese=False`` PointNet on
+   the card against the CPU;
 9. trains one epoch of the PointNet of ``configs/SynthCars.json``, with a
    ``tpu.profile`` trace of its steps 1-2 and the card's busy share there;
    then the completion head: one epoch of ``configs/SynthCars40kComp.json``
@@ -85,6 +95,7 @@ without a CUDA card.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import logging
 import multiprocessing
@@ -166,6 +177,31 @@ STEP_GRAD_TOL = 1e-3     # and each parameter gradient's relative L2 error;
 STEP_SENS_REL = 1e-7
 STEP_SENS_DRAWS = 3
 STEP_SENS_FACTOR = 2.0
+DP_RANKS = 2             # processes of the data-parallel run, one card
+DP_STEP_ITERS = 3        # timed steps of each side of the DP step check
+DP_LOSS_RTOL = 1e-5      # DP first step vs 1 process: the loss and the
+DP_RTOL, DP_ATOL = 2e-4, 2e-5  # BN statistics
+# (tests/test_sharding_equivalence.py); each parameter's update (its value
+# less its initial one) is held by relative L2 to the step's noise rule
+# (STEP_GRAD_TOL or STEP_SENS_FACTOR x its gap under STEP_SENS_REL input
+# noise): rounding moves near-tied maxima. The same rule must reject each
+# of DP_FAULTS, planted in kernel 5's backward of the DP processes
+DP_FAULTS = ("dg_dbeta_reduced_twice", "sa1_sb1_not_reduced")
+# 1 process on NCCL vs no process group: the first two steps' losses, rel
+# gap by step. The first step is bit-equal; the next is not even between
+# two non-distributed runs of one tree: kernel 5 scatters dV with atomics,
+# and the rounding moves near-tied maxima and the theta / theta + pi picks
+# (two such runs on an H100 differed by up to 3.3e-5 at step 2)
+DP_SAME_RTOL = (0.0, 1e-3)
+OPTION_PAIRS = 16        # card vs CPU steps of bf16 and stack_siamese=False
+OPTION_TOL = {False: STEP_GRAD_TOL, True: 2e-2}   # by bf16
+OPTION_SENS = {False: STEP_SENS_REL, True: 1e-3}  # < 1 bf16 step for bf16
+OPTION_DRAWS = 8         # noise draws of each option step on the card
+OPTION_FLOOR = 1e-2      # a gradient's error is relative to its norm, or
+# this share of the whole gradient's when smaller: the bf16 DGCNN's
+# gradients are chaotic at the rounding level, and a near-zero one (a head's
+# last bias) is all noise (on an H100: 1.49 of itself, card vs CPU)
+INT8_REL = 1e-3          # int8 forward, card vs CPU, rel L2 an output
 SPIN_CYCLES = 400_000    # device_ms: ~0.2 ms of spinning per timed call
 # the classical baselines: make_icp_configs.py's variants and multistart, in
 # eval_icp.sh's order (each base before its *_p2p)
@@ -1238,6 +1274,483 @@ def dgcnn_training_phase(basepath: str, workdir: str):
               for n_ in names),
           "fused and unfused first-step gradients differ")
     return counts
+
+
+def _dp_config_file(basedir: str, basepath: str, name: str,
+                    **training) -> str:
+    """TRAIN_CONFIG with the fused edge stage for one epoch on the generated
+    dataset, written to ``basedir/name.json`` (the CLI logs its run to
+    ``basedir/name``); ``training`` overrides keys of its training block."""
+    with open(TRAIN_CONFIG) as f:
+        d = json.load(f)
+    d["data"]["basepath"] = basepath
+    d["logging"] = {"basedir": basedir}
+    d["model"]["options"]["dgcnn_fused_train"] = True
+    d["training"]["num_epochs"] = 1
+    d["training"].update(training)
+    path = os.path.join(basedir, f"{name}.json")
+    os.makedirs(basedir, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(d, f)
+    return path
+
+
+def _dp_step(cfg_path: str, batch, rows=None):
+    """One training step of a fresh Trainer on the card (``rows`` of the
+    batch: this process's): (loss, state_dict on the CPU, the Trainer)."""
+    from alignnet3d_tpu_torch.config import load_config
+    from alignnet3d_tpu_torch.training.trainer import Trainer
+
+    tr = Trainer(load_config(cfg_path), seed=SEED, device="cuda")
+    tr.init_state()
+    mine = batch if rows is None else tuple(a[rows] for a in batch)
+    metrics = tr.train_step(mine)
+    torch.cuda.synchronize()
+    return (float(metrics["losses/loss"]),
+            {k: v.detach().cpu().clone() for k, v in
+             tr.model.state_dict().items()}, tr, mine)
+
+
+@contextlib.contextmanager
+def _planted(fault: str):
+    """Kernel 5's backward with one of DP_FAULTS in this process:
+    ``dg_dbeta_reduced_twice`` also all-reduces the BN scales' and shifts'
+    gradients, which DistributedDataParallel then reduces again;
+    ``sa1_sb1_not_reduced`` skips the all-reduce of the first BN's
+    gradient sums (the backward's second)."""
+    from alignnet3d_tpu_torch.ops.edge_train_kernels import (
+        _FusedEdgeStageTrain as fn,
+    )
+    from alignnet3d_tpu_torch.parallel import multihost
+
+    backward, reduce_ = fn.backward, multihost.all_reduce_
+
+    def faulty(ctx, *cotangents):
+        if fault == "sa1_sb1_not_reduced":
+            calls = []
+
+            def skip_second(t):
+                calls.append(t)
+                return t if len(calls) == 2 else reduce_(t)
+
+            multihost.all_reduce_ = skip_second
+            try:
+                return backward(ctx, *cotangents)
+            finally:
+                multihost.all_reduce_ = reduce_
+        grads = list(backward(ctx, *cotangents))
+        for i in (4, 5, 8, 9):  # g1, be1, g2, be2
+            grads[i] = reduce_(grads[i].clone())
+        return tuple(grads)
+
+    assert fault in DP_FAULTS, fault
+    fn.backward = staticmethod(faulty)
+    try:
+        yield
+    finally:
+        fn.backward = staticmethod(backward)
+
+
+def _dp_step_worker(rank: int, ranks: int, rdzv: str, cfg_path: str, batch,
+                    out_dir: str):
+    """Process ``rank`` of a DP_RANKS run on the one card over gloo: its
+    rows of the global batch through one step, then DP_STEP_ITERS timed
+    steps, then one step from the initial state with each of DP_FAULTS
+    planted; writes (loss, state, ms, the faults' states) to
+    ``out_dir/rank<r>.pt``."""
+    from alignnet3d_tpu_torch.parallel import multihost
+
+    multihost.maybe_initialize(rdzv, ranks, rank, backend="gloo")
+    try:
+        local = len(batch[0]) // ranks
+        loss, state, tr, mine = _dp_step(
+            cfg_path, batch, slice(rank * local, (rank + 1) * local))
+        ms, _ = _step_ms(tr, mine, DP_STEP_ITERS)
+        del tr
+        faults = {}
+        for fault in DP_FAULTS:
+            with _planted(fault):
+                _, faults[fault], tr, _ = _dp_step(
+                    cfg_path, batch, slice(rank * local, (rank + 1) * local))
+            del tr
+        torch.save({"loss": loss, "state": state, "ms": ms,
+                    "faults": faults},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _state_gap(a: dict, b: dict, keys) -> float:
+    return max(float((a[k] - b[k]).abs().max()) for k in keys)
+
+
+def data_parallel_phase(basepath: str, workdir: str, card: str):
+    """Data-parallel training of the fused DGCNN (TRAIN_CONFIG, full width,
+    batch PAIRS) through ``parallel/multihost.py``: (a) one process on NCCL
+    through the CLI with the ALIGNNET_* variables, against the
+    non-distributed run of the same seed (``dgcnn_training_phase``'s);
+    (b) DP_RANKS processes on the one card over gloo with CUDA tensors,
+    PAIRS / DP_RANKS rows each: the first step (momentum SGD) against one
+    process's step on the same global batch, an epoch through the CLI
+    (equal parameters on every process, each process's launches of kernels
+    3 and 5), eval_only of its checkpoint against one process's eval.
+    Returns the launch counts of the processes' runs, summed by kernel."""
+    from alignnet3d_tpu_torch.config import load_config
+    from alignnet3d_tpu_torch.data.provider import PackedDataset, getDataFiles
+    from alignnet3d_tpu_torch.models.alignnet import ModelSpec
+    from alignnet3d_tpu_torch.ops import edge_train_kernels as et
+    from alignnet3d_tpu_torch.parallel import dryrun
+    from alignnet3d_tpu_torch.training.trainer import Trainer
+    from alignnet3d_tpu_torch.weights import init_state_dict
+
+    t_phase = time.perf_counter()
+    basedir = os.path.join(workdir, "dp")
+    total = dict.fromkeys(_wrappers(), 0)
+
+    def add(results):
+        for r in results:
+            for name, n in r["launches"].items():
+                total[name] += n
+
+    # (a) world size 1 on NCCL, against the run of dgcnn_training_phase
+    one = _dp_config_file(basedir, basepath, "nccl1")
+    t0 = time.perf_counter()
+    res = dryrun.run_workers(1, ["train", "--config", one, "--device",
+                                 "cuda"], dryrun.file_rendezvous(basedir),
+                             timeout=300)
+    add(res)
+    check(res[0]["backend"] == "nccl", f"backend {res[0]['backend']}")
+    got = torch.load(os.path.join(basedir, "nccl1", "model-0.pt"),
+                     map_location="cpu", weights_only=True)["model"]
+    want = torch.load(os.path.join(workdir, "dgcnn_fused", "model-0.pt"),
+                      map_location="cpu", weights_only=True)["model"]
+    names = list(want)
+    equal = all(torch.equal(got[k], want[k]) for k in names)
+
+    def step_losses(logdir):
+        with open(os.path.join(logdir, "train", "scalars.jsonl")) as f:
+            return [json.loads(line)["losses/loss"] for line in f]
+
+    ref = step_losses(os.path.join(workdir, "dgcnn_fused"))
+    nccl = step_losses(os.path.join(basedir, "nccl1"))
+    gaps = [abs(x - y) / abs(y) for x, y in zip(nccl, ref)]
+    print(f"DP (a): 1 process on NCCL through the CLI vs the "
+          f"non-distributed epoch: parameters bit-equal {equal}, largest gap "
+          f"{_state_gap(got, want, names):.3e}; step losses {nccl} vs {ref}, "
+          f"rel gaps {[f'{g:.2e}' for g in gaps]} (limits {DP_SAME_RTOL} on "
+          f"the first steps); {time.perf_counter() - t0:.1f} s; launches "
+          f"{res[0]['launches']}")
+    check(len(nccl) == len(ref) >= len(DP_SAME_RTOL) and all(
+        g <= lim for g, lim in zip(gaps, DP_SAME_RTOL)),
+        "the 1-process NCCL run differs from the non-distributed run")
+
+    # (b) the first step: DP_RANKS processes against one on the same batch
+    step_cfg = _dp_config_file(basedir, basepath, "step", optimizer={
+        "optimizer": "momentum", "momentum": 0.9})
+    train_idx = getDataFiles(os.path.join(basepath, "split", "train.txt"))
+    spec = ModelSpec.from_config(load_config(step_cfg))
+    batch = PackedDataset(basepath).sample_batch(
+        train_idx[:PAIRS], spec.num_points, np.random.default_rng(SEED + 6))
+    t0 = time.perf_counter()
+    torch.multiprocessing.spawn(
+        _dp_step_worker, nprocs=DP_RANKS, join=True,
+        args=(DP_RANKS, dryrun.file_rendezvous(basedir), step_cfg, batch,
+              basedir))
+    ranks = [torch.load(os.path.join(basedir, f"rank{r}.pt"),
+                        weights_only=True) for r in range(DP_RANKS)]
+    print(f"DP (b): {DP_RANKS} processes' first step on the card over gloo: "
+          f"{time.perf_counter() - t0:.1f} s")
+    for r in ranks[1:]:
+        check(all(torch.equal(r["state"][k], ranks[0]["state"][k])
+                  for k in names) and r["loss"] == ranks[0]["loss"],
+              "the processes' states differ after the first step")
+    init = init_state_dict(spec, SEED)
+    lw, want, tr, _ = _dp_step(step_cfg, batch)
+    ms_one, _ = _step_ms(tr, batch, DP_STEP_ITERS)
+    del tr
+    rng = np.random.default_rng(SEED + 9)
+    loss_sens, sens = 0.0, dict.fromkeys(names, 0.0)
+    params = [k for k in names if not k.endswith((".mean", ".var"))]
+    upd = lambda s: [s[k] - init[k] for k in params]  # noqa: E731
+    for _ in range(STEP_SENS_DRAWS):
+        lp, sp, tr, _ = _dp_step(step_cfg, tuple(
+            (a * (1.0 + STEP_SENS_REL * rng.standard_normal(a.shape))).astype(
+                np.float32) if i < 2 else a for i, a in enumerate(batch)))
+        del tr
+        s = et.grad_errors(upd(sp), upd(want), params,
+                           _absorbed_biases(params))
+        loss_sens = max(loss_sens, abs(lp - lw))
+        sens = {k: max(sens.get(k, 0.0), s[k]) for k in params}
+    bound = {k: max(STEP_GRAD_TOL, STEP_SENS_FACTOR * sens[k])
+             for k in params}
+
+    def held(state):
+        """The worst update's (name, rel L2 error, error / its bound)."""
+        errs = et.grad_errors(upd(state), upd(want), params,
+                              _absorbed_biases(params))
+        worst = max(params, key=lambda k: errs[k] / bound[k])
+        return worst, errs[worst], errs[worst] / bound[worst]
+
+    got = ranks[0]["state"]
+    lg = ranks[0]["loss"]
+    worst, err, ratio = held(got)
+    sizes = sorted(float(u.abs().mean()) for u in upd(want))
+    stats = [k for k in names if k.endswith((".mean", ".var"))]
+    stats_ok = all(torch.allclose(got[k], want[k], rtol=DP_RTOL, atol=DP_ATOL)
+                   for k in stats)
+    print(f"DP (b) first step vs 1 process on the same {PAIRS} pairs: loss "
+          f"{lg:.7f} vs {lw:.7f} (rel gap {abs(lg - lw) / abs(lw):.2e}, "
+          f"rtol {DP_LOSS_RTOL}); mean |update| per parameter from "
+          f"{sizes[0]:.2e} to {sizes[-1]:.2e} (median "
+          f"{sizes[len(sizes) // 2]:.2e}); worst update rel L2 error "
+          f"{err:.2e} ({worst}; {ratio:.3f} of its bound, {STEP_GRAD_TOL} or "
+          f"{STEP_SENS_FACTOR:g} x its gap under {STEP_SENS_REL:g} input "
+          f"noise); BN running statistics within rtol {DP_RTOL} / atol "
+          f"{DP_ATOL}: {stats_ok}")
+    print(f"DP (b) fused DGCNN step (host clock, {DP_STEP_ITERS} steps ending "
+          f"in a synchronize): {DP_RANKS} x {PAIRS // DP_RANKS} rows on one "
+          f"card over gloo {ranks[0]['ms']:.1f} ms (rank 0), "
+          f"{ranks[1]['ms']:.1f} ms (rank 1); 1 x {PAIRS} rows "
+          f"{ms_one:.1f} ms ({card})")
+    check(abs(lg - lw) <= max(DP_LOSS_RTOL * abs(lw),
+                              STEP_SENS_FACTOR * loss_sens),
+          "DP first-step loss differs from the 1-process step")
+    check(stats_ok, "DP BN running statistics differ from the 1-process step")
+    check(ratio <= 1.0, "DP first-step parameters differ from the 1-process "
+          "step")
+    for fault in DP_FAULTS:
+        worst, err, ratio = held(ranks[0]["faults"][fault])
+        print(f"DP (b) first step with the fault {fault} planted in kernel "
+              f"5's backward: worst update rel L2 error {err:.2e} ({worst}; "
+              f"{ratio:.1f} x its bound)")
+        check(ratio > 1.0, f"the DP step check passed the planted fault "
+              f"{fault}")
+
+    # (b) an epoch and eval_only through the CLI, DP_RANKS processes
+    ep = _dp_config_file(basedir, basepath, "gloo2")
+    cli = ["--config", ep, "--device", "cuda"]
+    t0 = time.perf_counter()
+    res = dryrun.run_workers(DP_RANKS, ["train", *cli],
+                             dryrun.file_rendezvous(basedir),
+                             backend="gloo", timeout=300)
+    t_train = time.perf_counter() - t0
+    add(res)
+    steps = len(train_idx) // PAIRS
+    for r in res:
+        lc = r["launches"]
+        print(f"DP (b) epoch, process {r['rank']}: launches {lc}")
+        check(lc["fused_edge_stage_train"] == 30 * steps,
+              f"process {r['rank']}: kernel 5 launched "
+              f"{lc['fused_edge_stage_train']} times, expected {30 * steps}")
+        check(lc["knn_points"] == 3 * steps + 3,
+              f"process {r['rank']}: kernel 3 launched {lc['knn_points']} "
+              f"times, expected {3 * steps + 3}")
+    check(len({r["params"] for r in res}) == 1,
+          "the processes' parameters differ after the epoch")
+    logdir = os.path.join(basedir, "gloo2")
+    _check_trained(logdir, "DP DGCNN")
+    for r in range(1, DP_RANKS):
+        check(os.listdir(os.path.join(logdir, f"proc{r}")) == ["out.log"],
+              f"process {r} wrote more than its log")
+    shutil.copytree(logdir, logdir + "_one")
+    t0 = time.perf_counter()
+    add(dryrun.run_workers(DP_RANKS, ["eval_only", "--eval_epoch", "0",
+                                      *cli], dryrun.file_rendezvous(basedir),
+                           backend="gloo", timeout=300))
+    t_eval = time.perf_counter() - t0
+    cfg = load_config(ep)
+    cfg.logging.__dict__["logdir"] = logdir + "_one"
+    one = Trainer(cfg, seed=SEED, device="cuda")
+    one.train(eval_only=True, eval_epoch=0)
+    ev = os.path.join("val", "eval000000")
+    dp, ref = ([np.load(os.path.join(d, ev, f"{name}.npy")) for name in (
+        "pred_translations", "pred_s2_pc1centers", "pred_angles")]
+        for d in (logdir, logdir + "_one"))
+    gap = _answer_gap(*dp[:2], dp[2][:, 0], *ref[:2], ref[2][:, 0])
+    # the pairs whose answer rounding decides, on the 1-process model and
+    # its eval batch (one batch of PAIRS)
+    val = list(one.val_indices)
+    check(len(val) == PAIRS, f"{len(val)} val pairs, expected {PAIRS}")
+    batch = one._make_batch(val, rng=one._epoch_rng(2))
+    ties, sensitive = decided_pairs(
+        lambda a, b: one.eval_step((a, b, *batch[2:]))[1], batch[0],
+        batch[1], one.spec.num_bins, np.pi / one.spec.num_bins
+        if cfg.evaluation.scale_residuals else 1.0,
+        cfg.evaluation.resolve_flips)
+    aside = ties | sensitive
+    ok = gap <= NET_ATOL
+    print(f"DP (b) train {t_train:.1f} s, eval_only {t_eval:.1f} s through "
+          f"the CLI; eval vs 1 process on its checkpoint: max gap "
+          f"{gap[~aside].max():.3e} over {int((~aside).sum())} pairs (atol "
+          f"{NET_ATOL}), {float((gap <= 1e-5).mean()):.1%} of {len(gap)} "
+          f"within 1e-5; {int(ties.sum())} pairs at a near-tie, "
+          f"{int(sensitive.sum())} moved > {NET_ATOL} by a {SENS_REL:g} "
+          f"input perturbation; of those {int((~ok & aside).sum())} differ "
+          f"(max gap {gap.max():.3e})")
+    check(ok[~aside].all(), "DP eval predictions differ from the 1-process "
+          "eval")
+    check(ties.mean() <= 0.05, "DP eval: too many near-ties")
+    check(sensitive.mean() <= SENS_SHARE,
+          "DP eval: too many rounding-sensitive pairs")
+    print(f"data-parallel phase: {time.perf_counter() - t_phase:.1f} s; "
+          f"launches of its processes {total}")
+    return total
+
+
+def _model_step(spec, loss_spec, state, batch, device):
+    """Loss and parameter gradients of one train-mode forward of AlignNet
+    with ``state`` (dropout keep 1, no jitter), on ``device``."""
+    from alignnet3d_tpu_torch.models.alignnet import AlignNet
+    from alignnet3d_tpu_torch.models.backbones import Dropout
+    from alignnet3d_tpu_torch.models.losses import get_loss
+
+    model = AlignNet(spec).to(device).train()
+    model.load_state_dict(state)
+    for mod in model.modules():
+        if isinstance(mod, Dropout):
+            mod.keep = 1.0
+    tb = [torch.from_numpy(a).to(device) for a in batch]
+    loss, _ = get_loss(*tb, model(tb[0], tb[1], momentum=0.5),
+                       spec=loss_spec)
+    params = dict(model.named_parameters())
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.item(), [g.cpu() for g in grads], list(params)
+
+
+def model_options_phase(basepath: str, card: str):
+    """One training step (loss and gradients) of the unfolded model on the
+    card against the CPU, from the same seeded weights and batch:
+    ``tpu.compute_dtype`` bfloat16 for the PointNet (CONFIG) and the fused
+    DGCNN (TRAIN_CONFIG), ``stack_siamese=False`` for the PointNet in
+    float32. Held to a tolerance (OPTION_TOL) or STEP_SENS_FACTOR times the
+    card's own largest gap when its input points move by a relative
+    OPTION_SENS (below one bf16 step for bf16), over OPTION_DRAWS draws; a
+    gradient's error is taken relative to the larger of its norm and
+    OPTION_FLOOR of the whole gradient's (BN-absorbed biases: of their BN
+    shift's)."""
+    import dataclasses
+
+    from alignnet3d_tpu_torch.data.provider import PackedDataset, getDataFiles
+    from alignnet3d_tpu_torch.models.alignnet import ModelSpec
+    from alignnet3d_tpu_torch.models.losses import LossSpec
+
+    t_phase = time.perf_counter()
+    ds = PackedDataset(basepath)
+    train = getDataFiles(os.path.join(basepath, "split", "train.txt"))
+    cases = (("PointNet bf16", CONFIG, {"compute_dtype": "bfloat16"}, {}),
+             ("fused DGCNN bf16", TRAIN_CONFIG,
+              {"compute_dtype": "bfloat16", "dgcnn_fused_train": True}, {}),
+             ("PointNet stack_siamese=False", CONFIG, {},
+              {"stack_siamese": False}))
+    for name, path, over, spec_over in cases:
+        cfg = train_config(path, basepath, os.path.join(basepath, "unused"),
+                           tpu={k: v for k, v in over.items()
+                                if k == "compute_dtype"},
+                           **{k: v for k, v in over.items()
+                              if k != "compute_dtype"})
+        spec = dataclasses.replace(ModelSpec.from_config(cfg), **spec_over)
+        loss_spec = LossSpec.from_config(cfg)
+        state = seeded_weights(spec)
+        bf16 = spec.compute_dtype == "bfloat16"
+        tol, sens_rel = OPTION_TOL[bf16], OPTION_SENS[bf16]
+        batch = ds.sample_batch(train[:OPTION_PAIRS], spec.num_points,
+                                np.random.default_rng(SEED + 10))
+        lg, gg, names = _model_step(spec, loss_spec, state, batch, "cuda")
+        t0 = time.perf_counter()
+        lc, gc, _ = _model_step(spec, loss_spec, state, batch, "cpu")
+        cpu_s = time.perf_counter() - t0
+        absorbed = _absorbed_biases(names)
+        floor = OPTION_FLOOR * float(torch.sqrt(sum(
+            torch.sum(torch.square(r)) for r in gc)))
+        norms = {n: max(float(r.norm()), floor) for n, r in zip(names, gc)}
+        scale = {n: norms[absorbed.get(n, n)] for n in names}
+
+        def rel(got, ref):
+            return {n: float((g - r).norm()) / scale[n]
+                    for n, g, r in zip(names, got, ref)}
+
+        errs = rel(gg, gc)
+        rng = np.random.default_rng(SEED + 11)
+        loss_sens, sens = 0.0, dict.fromkeys(names, 0.0)
+        for _ in range(OPTION_DRAWS):
+            lp, gp, _ = _model_step(spec, loss_spec, state, tuple(
+                (a * (1.0 + sens_rel * rng.standard_normal(a.shape))).astype(
+                    np.float32) if i < 2 else a for i, a in enumerate(batch)),
+                "cuda")
+            s = rel(gp, gg)
+            loss_sens = max(loss_sens, abs(lp - lg))
+            sens = {n: max(sens[n], s[n]) for n in names}
+        worst = max(errs, key=lambda n: errs[n] / max(
+            tol, STEP_SENS_FACTOR * sens[n]))
+        print(f"{name} first step, {OPTION_PAIRS} pairs, card vs CPU (CPU "
+              f"{cpu_s:.1f} s): loss {lg:.7f} vs {lc:.7f} (rel gap "
+              f"{abs(lg - lc) / abs(lc):.2e}); worst gradient rel L2 error "
+              f"{errs[worst]:.2e} ({worst}; tol {tol} or "
+              f"{STEP_SENS_FACTOR:g} x its gap under {sens_rel:g} input "
+              f"noise, {STEP_SENS_FACTOR * sens[worst]:.2e})")
+        check(abs(lg - lc) <= max(tol * abs(lc),
+                                  STEP_SENS_FACTOR * loss_sens),
+              f"{name}: card and CPU first-step losses differ")
+        check(all(errs[n] <= max(tol, STEP_SENS_FACTOR * sens[n])
+                  for n in names),
+              f"{name}: card and CPU first-step gradients differ")
+    print(f"model options phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def int8_phase(spec, state, requests, card: str):
+    """``build_inference_fn(quantize=...)`` at PAIRS pairs, both scopes, on
+    the card against the CPU (each output's relative L2 gap within
+    INT8_REL), and the folded forward timed by CUDA events in float32,
+    bf16 and int8. Returns the launch counts of one int8 forward of each
+    scope (the chains it leaves in float32 run kernel 1)."""
+    from alignnet3d_tpu_torch.api import Aligner
+    from alignnet3d_tpu_torch.serving import build_inference_fn
+
+    t_phase = time.perf_counter()
+    probe = Aligner(spec, state, batch_size=PAIRS, seed=SEED, device="cpu")
+    a_np, b_np = (probe._resample(p) for p in requests[0])
+    a, b = torch.from_numpy(a_np).cuda(), torch.from_numpy(b_np).cuda()
+    wrappers = _wrappers()
+    total = dict.fromkeys(wrappers, 0)
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        fn = build_inference_fn(spec, state, dtype, device="cuda")
+        times[str(dtype).split(".")[-1]] = cuda_ms(lambda: fn(a, b))
+    f32 = build_inference_fn(spec, state, device="cuda")(a, b)
+    for scope in ("embedding", "backbones"):
+        fn = build_inference_fn(spec, state, device="cuda", quantize=scope)
+        times[f"int8 {scope}"] = cuda_ms(lambda: fn(a, b))
+        for w in wrappers.values():
+            w.launches = 0
+        got = fn(a, b)
+        torch.cuda.synchronize()
+        counts = {n: w.launches for n, w in wrappers.items()}
+        for n, c in counts.items():
+            total[n] += c
+        want_k1 = 2 if scope == "embedding" else 0
+        check(counts["fused_pointnet"] == want_k1,
+              f"int8 {scope}: fused_pointnet launched "
+              f"{counts['fused_pointnet']} times, expected {want_k1}")
+        cpu = build_inference_fn(spec, state, device="cpu", quantize=scope)(
+            torch.from_numpy(a_np), torch.from_numpy(b_np))
+        gaps, vs_f32 = {}, {}
+        for key, v in got.items():
+            g, c, f = v.cpu().double(), cpu[key].double(), f32[key].cpu(
+            ).double()
+            check(bool(torch.isfinite(g).all()), f"int8 {scope}: {key} "
+                  f"is not finite")
+            gaps[key] = float((g - c).norm() / c.norm().clamp_min(1e-12))
+            vs_f32[key] = float((g - f).norm() / f.norm().clamp_min(1e-12))
+        worst = max(gaps, key=gaps.get)
+        print(f"int8 {scope}, {PAIRS} pairs: card vs CPU worst rel L2 gap "
+              f"{gaps[worst]:.2e} ({worst}; limit {INT8_REL}); vs the f32 "
+              f"forward on the card up to {max(vs_f32.values()):.2e}; "
+              f"launches {counts}")
+        check(gaps[worst] <= INT8_REL, f"int8 {scope}: card and CPU differ")
+    print(f"PointNet folded forward, {PAIRS} pairs (CUDA events; {card}): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()))
+    print(f"int8 phase: {time.perf_counter() - t_phase:.1f} s")
+    return total
 
 
 def _kernel_class(name: str) -> str:
@@ -2493,21 +3006,33 @@ def rounding_decided(spec, state, rng_state, pcs1, pcs2, flips: bool):
 
 def _rounding_decided(spec, state, rng_state, pcs1, pcs2, flips: bool):
     from alignnet3d_tpu_torch.api import Aligner
-    from alignnet3d_tpu_torch.evaluation.decode import decode_pair_outputs
-    from alignnet3d_tpu_torch.ops.flip_resolve import resolve_flips
 
     probe = Aligner(spec, state, batch_size=PAIRS, device="cpu")
     probe._rng.bit_generator.state = rng_state
     a, b = probe._resample(pcs1), probe._resample(pcs2)
-    out = {k: v.numpy() for k, v in
-           probe._forward(torch.from_numpy(a), torch.from_numpy(b)).items()}
-    nb = spec.num_bins
+
+    def forward(pa, pb):
+        return {k: v.numpy() for k, v in probe._forward(
+            torch.from_numpy(pa), torch.from_numpy(pb)).items()}
+
+    return decided_pairs(forward, a, b, spec.num_bins, probe.residual_scale,
+                         flips)
+
+
+def decided_pairs(forward, a, b, nb: int, residual_scale: float,
+                  flips: bool):
+    """``rounding_decided``'s (ties, sensitive) of the pairs (a, b) under
+    ``forward(a, b)``, a model's end points as numpy."""
+    from alignnet3d_tpu_torch.evaluation.decode import decode_pair_outputs
+    from alignnet3d_tpu_torch.ops.flip_resolve import resolve_flips
+
+    out = forward(a, b)
     flagged = np.zeros(len(a), bool)
     for key in ("pred_pc1angle_logits", "pred_pc2angle_logits",
                 "pred_remaining_angle_logits"):
         flagged |= _top2_gap(out[key], nb) < TIE_MARGIN
     if flips:
-        dec = decode_pair_outputs(out, a, b, nb, probe.residual_scale,
+        dec = decode_pair_outputs(out, a, b, nb, residual_scale,
                                   resolve_flips=False, device="cpu")
         _, d, d_flip = resolve_flips(
             torch.from_numpy(a), torch.from_numpy(b),
@@ -2518,7 +3043,7 @@ def _rounding_decided(spec, state, rng_state, pcs1, pcs2, flips: bool):
         flagged |= np.abs(d - d_flip) <= TIE_MARGIN * np.maximum(d, d_flip)
 
     def answer(pa, pb, out):
-        dec = decode_pair_outputs(out, pa, pb, nb, probe.residual_scale,
+        dec = decode_pair_outputs(out, pa, pb, nb, residual_scale,
                                   resolve_flips=flips, device="cpu")
         return dec.translations, dec.s2_pc1centers, dec.angles
 
@@ -2528,9 +3053,8 @@ def _rounding_decided(spec, state, rng_state, pcs1, pcs2, flips: bool):
     for _ in range(SENS_DRAWS):
         pa, pb = ((x * (1.0 + SENS_REL * rng.standard_normal(x.shape)))
                   .astype(np.float32) for x in (a, b))
-        out_p = {k: v.numpy() for k, v in probe._forward(
-            torch.from_numpy(pa), torch.from_numpy(pb)).items()}
-        sensitive |= _answer_gap(*ref, *answer(pa, pb, out_p)) > NET_ATOL
+        sensitive |= _answer_gap(*ref, *answer(pa, pb, forward(pa, pb))) \
+            > NET_ATOL
     return flagged, sensitive
 
 
@@ -2946,6 +3470,15 @@ def main() -> int:
         k5 = fused_edge_stage_train_phase(basepath)
         counts = dgcnn_training_phase(basepath, workdir)
         launches["fused_edge_stage_train"] = counts["fused_edge_stage_train"]
+        # the data-parallel runs' (kernels 3 and 5, and 2 in process 0's
+        # eval) and int8 serving's (kernel 1 on the chains it leaves in
+        # float32); then the model options' steps, card against CPU
+        for counts in (data_parallel_phase(basepath, workdir, card),
+                       int8_phase(spec, state, requests, card)):
+            for name in ("fused_pointnet", "nn_argmin", "knn_points",
+                         "fused_edge_stage_train"):
+                launches[name] += counts[name]
+        model_options_phase(basepath, card)
         pointnet_training_phase(basepath, workdir, card)
         # the completion path's (its eval's flips and its request) and the
         # KITTI path's (its request)

@@ -832,3 +832,21 @@ def test_fused_edge_stage_train_refuses_what_the_kernel_does_not_take(
         f, idx, params, _ = _train_inputs(12, 2, 700, 600, 8, 16, "meta")
     with pytest.raises(ValueError, match=match):
         et.fused_edge_stage_train(f, idx, *params)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(1, 3, 64), (5, 3, 64), (17, 3, 64),
+                                   (24, 16, 64), (33, 12, 20), (300, 12, 20),
+                                   (131072, 64, 128)])
+def test_int_mm_pads_exactly_on_the_card(sm90, m, k, n):
+    """``ops/quant.int_mm`` pads what ``torch._int_mm`` refuses on the card
+    (row counts cuBLASLt does not take, widths not a multiple of 8) and
+    stays exact."""
+    from alignnet3d_tpu_torch.ops import quant
+
+    rng = np.random.default_rng(m)
+    a = torch.from_numpy(rng.integers(-128, 128, (m, k), dtype=np.int8))
+    b = torch.from_numpy(rng.integers(-128, 128, (k, n), dtype=np.int8))
+    got = quant.int_mm(a.to(sm90), b.to(sm90))
+    assert got.dtype == torch.int32 and got.device.type == "cuda"
+    assert torch.equal(got.cpu(), a.to(torch.int32) @ b.to(torch.int32))
