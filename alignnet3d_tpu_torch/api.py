@@ -29,7 +29,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from alignnet3d_tpu_torch import checkpoint
+from alignnet3d_tpu_torch import checkpoint, tracing
 from alignnet3d_tpu_torch.config import config_from_dict
 from alignnet3d_tpu_torch.data.denoise import component_filter_indices
 from alignnet3d_tpu_torch.data.provider import voxel_dedup_indices
@@ -161,21 +161,29 @@ class Aligner:
 
         for s in range(0, n, bs):
             e = min(s + bs, n)
-            a = self._resample(pcs1[s:e])
-            b = self._resample(pcs2[s:e])
+            with tracing.span("api.resample"):
+                a = self._resample(pcs1[s:e])
+                b = self._resample(pcs2[s:e])
             pad = bs - (e - s)
-            if pad:
-                a = np.concatenate([a, np.repeat(a[-1:], pad, 0)])
-                b = np.concatenate([b, np.repeat(b[-1:], pad, 0)])
-            out = forward(torch.from_numpy(a).to(self.device),
-                          torch.from_numpy(b).to(self.device))
-            out = {k: v.cpu().numpy() for k, v in out.items()}
-            dec = decode_pair_outputs(
-                out, a, b, self.spec.num_bins, self.residual_scale,
-                resolve_flips=resolve_flips, n=e - s, device=self.device)
-            translations[s:e] = dec.translations
-            angles[s:e] = dec.angles
-            centers[s:e] = dec.s2_pc1centers
+            tracing.count("serving.rows", bs)
+            tracing.count("serving.padded_rows", pad)
+            with tracing.span("api.h2d"):  # pad to the batch, upload
+                if pad:
+                    a = np.concatenate([a, np.repeat(a[-1:], pad, 0)])
+                    b = np.concatenate([b, np.repeat(b[-1:], pad, 0)])
+                a_dev = torch.from_numpy(a).to(self.device)
+                b_dev = torch.from_numpy(b).to(self.device)
+            with tracing.span("serving.forward"):
+                out = forward(a_dev, b_dev)
+            with tracing.span("api.readback"):
+                out = {k: v.cpu().numpy() for k, v in out.items()}
+            with tracing.span("api.decode"):
+                dec = decode_pair_outputs(
+                    out, a, b, self.spec.num_bins, self.residual_scale,
+                    resolve_flips=resolve_flips, n=e - s, device=self.device)
+                translations[s:e] = dec.translations
+                angles[s:e] = dec.angles
+                centers[s:e] = dec.s2_pc1centers
         return translations, angles, centers
 
     def align(self, pcs1: Sequence[np.ndarray], pcs2: Sequence[np.ndarray],
@@ -197,25 +205,53 @@ class Aligner:
         point-to-point ICP (world frame, centre = origin)."""
         if len(pcs1) != len(pcs2):
             raise ValueError(f"{len(pcs1)} first clouds but {len(pcs2)} second")
+        with tracing.span("api.align"):
+            n = len(pcs1)
+            translations, angles, centers = self._predict(pcs1, pcs2,
+                                                          resolve_flips)
+            if network_refine and n:
+                with tracing.span("api.network_refine"):
+                    M1 = get_mat_angle_batch(translations, angles, centers)
+                    pcs1_t = [
+                        transform_points(np.asarray(p, np.float32)[:, :3],
+                                         M1[i])
+                        if len(p) else p
+                        for i, p in enumerate(pcs1)
+                    ]
+                    t2, a2, c2 = self._predict(pcs1_t, pcs2, resolve_flips,
+                                               state_dict=refine_variables)
+                    M, _ = compose_gated_refinement(
+                        M1, t2, a2, c2, refine_gate[0], refine_gate[1])
+                    translations = M[:, :3, 3].astype(np.float32)
+                    angles = np.arctan2(M[:, 1, 0], M[:, 0, 0]).astype(
+                        np.float32)
+                    centers = np.zeros_like(centers)
+            if refine_icp:
+                translations, angles, centers = self._refine_icp(
+                    pcs1, pcs2, translations, angles, centers, icp_its,
+                    icp_radius)
+            with tracing.span("api.transforms"):
+                transforms = np.stack([
+                    get_mat_angle(translations[i], angles[i],
+                                  rotation_center=centers[i])
+                    for i in range(n)
+                ])
+        return {
+            "translations": translations,
+            "angles": angles,
+            "centers": centers,
+            "transforms": transforms,
+        }
+
+    def _refine_icp(self, pcs1, pcs2, translations, angles, centers,
+                    its: int, radius: float):
+        """Constrained point-to-point ICP from the given poses over the raw
+        clouds, zero-padded to the longest (at most 4,096 points: longer
+        clouds are subsampled without replacement from the aligner's
+        generator). Returns the world-frame (translations, angles,
+        centers)."""
         n = len(pcs1)
-        translations, angles, centers = self._predict(pcs1, pcs2, resolve_flips)
-
-        if network_refine and n:
-            M1 = get_mat_angle_batch(translations, angles, centers)
-            pcs1_t = [
-                transform_points(np.asarray(p, np.float32)[:, :3], M1[i])
-                if len(p) else p
-                for i, p in enumerate(pcs1)
-            ]
-            t2, a2, c2 = self._predict(pcs1_t, pcs2, resolve_flips,
-                                       state_dict=refine_variables)
-            M, _ = compose_gated_refinement(M1, t2, a2, c2, refine_gate[0],
-                                            refine_gate[1])
-            translations = M[:, :3, 3].astype(np.float32)
-            angles = np.arctan2(M[:, 1, 0], M[:, 0, 0]).astype(np.float32)
-            centers = np.zeros_like(centers)
-
-        if refine_icp:
+        with tracing.span("api.icp_pad"):
             n_max = max(max((len(p) for p in pcs1), default=1),
                         max((len(p) for p in pcs2), default=1))
             n_max = min(n_max, 4096)
@@ -239,20 +275,8 @@ class Aligner:
                               rotation_center=centers[i])
                 for i in range(n)
             ])
-            tf, _, _ = icp_p2point_batch(src, sm, dst, dm, init,
-                                         radius=icp_radius, its=icp_its,
-                                         device=self.device)
-            translations = tf[:, :3, 3].astype(np.float32)
-            angles = np.arctan2(tf[:, 1, 0], tf[:, 0, 0]).astype(np.float32)
-            centers = np.zeros_like(centers)
-
-        transforms = np.stack([
-            get_mat_angle(translations[i], angles[i], rotation_center=centers[i])
-            for i in range(n)
-        ])
-        return {
-            "translations": translations,
-            "angles": angles,
-            "centers": centers,
-            "transforms": transforms,
-        }
+        tf, _, _ = icp_p2point_batch(src, sm, dst, dm, init, radius=radius,
+                                     its=its, device=self.device)
+        return (tf[:, :3, 3].astype(np.float32),
+                np.arctan2(tf[:, 1, 0], tf[:, 0, 0]).astype(np.float32),
+                np.zeros_like(centers))

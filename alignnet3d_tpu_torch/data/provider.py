@@ -33,6 +33,7 @@ import time
 
 import numpy as np
 
+from alignnet3d_tpu_torch import tracing
 from alignnet3d_tpu_torch.data import native_loader
 from alignnet3d_tpu_torch.data.denoise import component_filter_indices
 from alignnet3d_tpu_torch.geometry import str_to_np
@@ -623,7 +624,9 @@ class PrefetchIterator:
         def worker():
             try:
                 for i in range(num_batches):
-                    self._queue.put(make_batch(i))
+                    with tracing.span("data.assemble"):
+                        batch = make_batch(i)
+                    self._queue.put(batch)
             except BaseException as e:  # surfaced on next()
                 self._error = e
             finally:
@@ -639,7 +642,8 @@ class PrefetchIterator:
         return self._num_batches
 
     def __next__(self):
-        item = self._queue.get()
+        with tracing.span("data.wait"):
+            item = self._queue.get()
         if item is None:
             if self._error is not None:
                 raise self._error

@@ -168,10 +168,8 @@ def icp_p2plane_batch(src, src_mask, dst, dst_mask, init_transforms,
     if not torch.is_tensor(dst_normals):
         dst_normals = torch.from_numpy(np.array(dst_normals, np.float32))
     nrm64 = dst_normals.to(device=device, dtype=torch.float64)
-    dst64 = torch.as_tensor(np.asarray(dst, np.float32),
-                            device=device).to(torch.float64)
 
-    def estimate(moved, idx, w):
+    def estimate(moved, idx, w, dst64):
         return _estimate_yaw_translation_p2plane(
             moved, gather_points(dst64, idx), gather_points(nrm64, idx), w)
 

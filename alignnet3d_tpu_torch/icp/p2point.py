@@ -19,6 +19,7 @@ import time
 import numpy as np
 import torch
 
+from alignnet3d_tpu_torch import tracing
 from alignnet3d_tpu_torch.geometry import get_mat_angle
 from alignnet3d_tpu_torch.ops.nn_kernels import nn_argmin
 
@@ -85,55 +86,72 @@ def _gate(src_mask, d2, radius2):
 def run_icp(src, src_mask, dst, dst_mask, init_transforms, radius, its,
             estimate, *, device):
     """The ICP loop shared by the point-to-point and point-to-plane
-    variants. ``estimate(moved, idx, w)`` returns the per-pair increment
-    (R (B,3,3), t (B,3)) in float64 from the moved source points, the
-    nearest-neighbour indices and the radius-gate weights. Returns numpy
-    (transforms (B,4,4) float64, fitness (B,), inlier_rmse (B,))."""
+    variants. ``estimate(moved, idx, w, dst64)`` returns the per-pair
+    increment (R (B,3,3), t (B,3)) in float64 from the moved source points,
+    the nearest-neighbour indices, the radius-gate weights and the
+    destination clouds in float64. Returns numpy (transforms (B,4,4)
+    float64, fitness (B,), inlier_rmse (B,))."""
     def dev(x, dtype):
         return torch.as_tensor(np.asarray(x), device=device).to(dtype)
 
-    # the pose algebra runs in float64: in float32 the closed-form update's
-    # sums over thousands of points round differently on the card and on
-    # the CPU, and ICP from a poor start amplifies such last-bit gaps into
-    # different answers. The nearest-neighbour search stays float32.
-    src64 = dev(src, torch.float64)
-    dst32 = dev(dst, torch.float32).contiguous()
-    sm = dev(src_mask, torch.bool)
-    dm = dev(dst_mask, torch.bool).contiguous()
-    init = np.asarray(init_transforms, np.float64)
-    R = dev(init[:, :3, :3], torch.float64)
-    t = dev(init[:, :3, 3], torch.float64)
-    # the radius is squared in float32, as the JAX package does
-    radius2 = float(np.float32(radius) * np.float32(radius))
-    eye = torch.eye(3, dtype=torch.float64, device=R.device).expand_as(R)
+    with tracing.span("icp.run"):
+        with tracing.span("icp.upload"):
+            # the pose algebra runs in float64: in float32 the closed-form
+            # update's sums over thousands of points round differently on
+            # the card and on the CPU, and ICP from a poor start amplifies
+            # such last-bit gaps into different answers. The
+            # nearest-neighbour search stays float32.
+            src64 = dev(src, torch.float64)
+            dst32 = dev(dst, torch.float32).contiguous()
+            dst64 = dst32.to(torch.float64)
+            sm = dev(src_mask, torch.bool)
+            dm = dev(dst_mask, torch.bool).contiguous()
+            init = np.asarray(init_transforms, np.float64)
+            R = dev(init[:, :3, :3], torch.float64)
+            t = dev(init[:, :3, 3], torch.float64)
+            # the radius is squared in float32, as the JAX package does
+            radius2 = float(np.float32(radius) * np.float32(radius))
+            eye = torch.eye(3, dtype=torch.float64,
+                            device=R.device).expand_as(R)
 
-    def moved_by(R, t):
-        return torch.einsum("bnd,bed->bne", src64, R) + t[:, None, :]
+        def moved_by(R, t):
+            return torch.einsum("bnd,bed->bne", src64, R) + t[:, None, :]
 
-    for _ in range(its):
-        moved = moved_by(R, t)
-        idx, d2 = _nn_correspondences(moved.to(torch.float32), dst32, dm)
-        w = _gate(sm, d2, radius2)
-        R_inc, t_inc = estimate(moved, idx, w)
-        # no correspondences -> keep the current transform
-        has = (torch.sum(w, dim=1) > 0)
-        R_inc = torch.where(has[:, None, None], R_inc, eye)
-        t_inc = torch.where(has[:, None], t_inc, torch.zeros_like(t_inc))
-        R, t = R_inc @ R, torch.einsum("bij,bj->bi", R_inc, t) + t_inc
+        # a span an iteration too: a profile's idle gaps are named by the
+        # innermost host range, which a whole loop of ~20 ops an iteration
+        # leaves thousands of events behind
+        with tracing.span("icp.iterate"):
+            for _ in range(its):
+                with tracing.span("icp.step"):
+                    moved = moved_by(R, t)
+                    idx, d2 = _nn_correspondences(moved.to(torch.float32),
+                                                  dst32, dm)
+                    w = _gate(sm, d2, radius2)
+                    R_inc, t_inc = estimate(moved, idx, w, dst64)
+                    # no correspondences -> keep the current transform
+                    has = (torch.sum(w, dim=1) > 0)
+                    R_inc = torch.where(has[:, None, None], R_inc, eye)
+                    t_inc = torch.where(has[:, None], t_inc,
+                                        torch.zeros_like(t_inc))
+                    R, t = (R_inc @ R,
+                            torch.einsum("bij,bj->bi", R_inc, t) + t_inc)
 
-    _, d2 = _nn_correspondences(moved_by(R, t).to(torch.float32), dst32, dm)
-    d2 = d2.to(torch.float64)
-    inlier = _gate(sm, d2, radius2)
-    n_src = torch.clamp_min(torch.sum(sm.to(torch.float64), dim=1), 1.0)
-    n_in = torch.sum(inlier, dim=1)
-    fitness = (n_in / n_src).to(torch.float32)
-    rmse = torch.sqrt(torch.sum(inlier * d2, dim=1)
-                      / torch.clamp_min(n_in, 1.0)).to(torch.float32)
+        with tracing.span("icp.readback"):
+            _, d2 = _nn_correspondences(moved_by(R, t).to(torch.float32),
+                                        dst32, dm)
+            d2 = d2.to(torch.float64)
+            inlier = _gate(sm, d2, radius2)
+            n_src = torch.clamp_min(torch.sum(sm.to(torch.float64), dim=1),
+                                    1.0)
+            n_in = torch.sum(inlier, dim=1)
+            fitness = (n_in / n_src).to(torch.float32)
+            rmse = torch.sqrt(torch.sum(inlier * d2, dim=1)
+                              / torch.clamp_min(n_in, 1.0)).to(torch.float32)
 
-    out = np.tile(np.eye(4, dtype=np.float64), (len(init), 1, 1))
-    out[:, :3, :3] = R.cpu().numpy()
-    out[:, :3, 3] = t.cpu().numpy()
-    return out, fitness.cpu().numpy(), rmse.cpu().numpy()
+            out = np.tile(np.eye(4, dtype=np.float64), (len(init), 1, 1))
+            out[:, :3, :3] = R.cpu().numpy()
+            out[:, :3, 3] = t.cpu().numpy()
+            return out, fitness.cpu().numpy(), rmse.cpu().numpy()
 
 
 def gather_points(points, idx):
@@ -157,11 +175,9 @@ def icp_p2point_batch(src, src_mask, dst, dst_mask, init_transforms,
     Returns (transforms (B,4,4) float64, fitness (B,), inlier_rmse (B,)),
     numpy.
     """
-    dst64 = torch.as_tensor(np.asarray(dst, np.float32),
-                            device=device).to(torch.float64)
     solve = _estimate_yaw_translation if with_constraint else _estimate_full
 
-    def estimate(moved, idx, w):
+    def estimate(moved, idx, w, dst64):
         return solve(moved, gather_points(dst64, idx), w)
 
     return run_icp(src, src_mask, dst, dst_mask, init_transforms, radius, its,

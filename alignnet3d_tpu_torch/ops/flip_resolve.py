@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from alignnet3d_tpu_torch import tracing
 from alignnet3d_tpu_torch.ops.nn_kernels import nn_argmin
 from alignnet3d_tpu_torch.ops.transforms import apply_rigid
 
@@ -44,12 +45,14 @@ def apply_flip_resolution(pcs1, pcs2, translations, angles, centers, *,
         return torch.as_tensor(np.asarray(x, np.float32).reshape(shape),
                                device=device)
 
-    flip, _, _ = resolve_flips(
-        dev(pcs1, np.shape(pcs1)), dev(pcs2, np.shape(pcs2)),
-        dev(translations, (-1, 3)), dev(angles, (-1,)), dev(centers, (-1, 3)),
-    )
-    flip = flip.cpu().numpy()
-    out = np.asarray(angles, np.float64).reshape(-1).copy()
-    out = np.where(flip, out + np.pi, out)
-    out = (out + np.pi) % (2 * np.pi) - np.pi
-    return out, flip
+    with tracing.span("flips.resolve"):
+        flip, _, _ = resolve_flips(
+            dev(pcs1, np.shape(pcs1)), dev(pcs2, np.shape(pcs2)),
+            dev(translations, (-1, 3)), dev(angles, (-1,)),
+            dev(centers, (-1, 3)),
+        )
+        flip = flip.cpu().numpy()
+        out = np.asarray(angles, np.float64).reshape(-1).copy()
+        out = np.where(flip, out + np.pi, out)
+        out = (out + np.pi) % (2 * np.pi) - np.pi
+        return out, flip

@@ -27,7 +27,8 @@ What it keeps from the reference and the JAX package:
 - ``tpu.profile`` = {"dir", "steps"}: a profiler trace of steps 1 to
   ``steps`` of epoch 0 (step 0 is skipped, as in the JAX package), here a
   ``torch.profiler`` Chrome trace (host and, on the card, CUDA activity)
-  written under ``dir``.
+  written under ``dir``, which holds the port's spans (``tracing.py``:
+  ``trainer.train_step`` and its stages, ``data.*``).
 
 In PyTorch: checkpoints are written as ``.pt`` (``checkpoint.py``), named
 as the JAX package's with ``.pt`` for ``.msgpack``; every restore reads
@@ -77,7 +78,7 @@ import torch
 import torch.profiler
 from torch.nn.parallel import DistributedDataParallel
 
-from alignnet3d_tpu_torch import checkpoint
+from alignnet3d_tpu_torch import checkpoint, tracing
 from alignnet3d_tpu_torch.data import provider
 from alignnet3d_tpu_torch.data.residual import (
     apply_residual_task,
@@ -266,8 +267,6 @@ class Trainer:
                 rs.voxel_size if rs.has("voxel_size") else 0.05)
         self._refine_model = None  # (weights path, model) of network_refine
         self._residual_params = params_from_config(cfg)
-        # seconds of the last eval's stages: network refine, ICP per stage
-        self.eval_times: dict = {}
         self._data_rng = np.random.default_rng(seed + 1)
         self._jitter_gen = torch.Generator(self.device).manual_seed(seed + 2)
         dropout_gen = torch.Generator(self.device).manual_seed(seed + 3)
@@ -347,28 +346,36 @@ class Trainer:
     def train_step(self, batch) -> dict:
         """One optimizer step on a host batch; returns its scalars, the
         losses as device tensors."""
-        pcs1, pcs2, translations, rel_angles, c1, c2, a1, a2 = \
-            self._to_device(batch)
-        bn_m = schedules.bn_decay(self.step, self.cfg, self._nbpe)
-        lr = schedules.learning_rate(self.schedule_count, self.cfg,
-                                     self._nbpe)
-        logged_lr = schedules.learning_rate(self.step, self.cfg, self._nbpe)
-        pcs1, pcs2 = self._jitter(pcs1), self._jitter(pcs2)
-        self._train_module.train()
-        out = self._train_module(pcs1, pcs2, momentum=bn_m)
-        loss, aux = get_loss(pcs1, pcs2, translations, rel_angles, c1, c2,
-                             a1, a2, out, spec=self.loss_spec)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.step()
-        self.step += 1
-        self.schedule_count += 1
-        return {"losses/loss": loss.detach(),
-                "hyperparameters/learning_rate": logged_lr,
-                "hyperparameters/bn_decay": bn_m,
-                **{k: v.detach() for k, v in aux.items()}}
+        with tracing.span("trainer.train_step"):
+            with tracing.span("trainer.to_device"):
+                pcs1, pcs2, translations, rel_angles, c1, c2, a1, a2 = \
+                    self._to_device(batch)
+            with tracing.span("trainer.jitter"):
+                pcs1, pcs2 = self._jitter(pcs1), self._jitter(pcs2)
+            with tracing.span("trainer.forward"):
+                bn_m = schedules.bn_decay(self.step, self.cfg, self._nbpe)
+                self._train_module.train()
+                out = self._train_module(pcs1, pcs2, momentum=bn_m)
+            with tracing.span("trainer.loss"):
+                loss, aux = get_loss(pcs1, pcs2, translations, rel_angles,
+                                     c1, c2, a1, a2, out, spec=self.loss_spec)
+            with tracing.span("trainer.backward"):
+                self.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            with tracing.span("trainer.optimizer"):
+                lr = schedules.learning_rate(self.schedule_count, self.cfg,
+                                             self._nbpe)
+                logged_lr = schedules.learning_rate(self.step, self.cfg,
+                                                    self._nbpe)
+                for group in self.optimizer.param_groups:
+                    group["lr"] = lr
+                self.optimizer.step()
+                self.step += 1
+                self.schedule_count += 1
+            return {"losses/loss": loss.detach(),
+                    "hyperparameters/learning_rate": logged_lr,
+                    "hyperparameters/bn_decay": bn_m,
+                    **{k: v.detach() for k, v in aux.items()}}
 
     @torch.no_grad()
     def eval_step(self, batch, model=None):
@@ -625,22 +632,22 @@ class Trainer:
         cur_t = P["pred_translations"]
         cur_a = P["pred_angles"]
         cur_c = P["pred_s2_pc1centers"]
-        times = []
+        seconds = 0.0
         for stage in stages or [{}]:
-            refined, elapsed = refine_predictions(
-                self.cfg, val_idxs, cur_t, cur_a, cur_c,
-                its=int(stage.get("its", icp_its)), dataset=self.dataset,
-                device=self.device, **cascade_stage_kwargs(base, stage))
+            with tracing.span("eval.icp_stage"):
+                refined, elapsed = refine_predictions(
+                    self.cfg, val_idxs, cur_t, cur_a, cur_c,
+                    its=int(stage.get("its", icp_its)), dataset=self.dataset,
+                    device=self.device, **cascade_stage_kwargs(base, stage))
             cur_t, cur_a = refined["translations"], refined["angles"]
             # ICP transforms are world-frame: the rotation centre resets to
             # the origin (reference train.py:483-484)
             cur_c = np.zeros_like(cur_c)
-            times.append(elapsed)
+            seconds += elapsed
         P["pred_translations"] = cur_t
         P["pred_angles"] = cur_a
         P["pred_s2_pc1centers"] = cur_c
-        self.eval_times["icp_stages"] = times
-        return sum(times)
+        return seconds
 
     def eval_one_epoch(self, epoch, eval_only: bool,
                        do_timings: bool = False, override_batch_size=None,
@@ -688,7 +695,6 @@ class Trainer:
         if refine_icp:
             suffix = f"_{icp_its}" if icp_its != 30 else ""
             eval_dir = f"{eval_dir}/refined_{icp_method}{suffix}"
-        self.eval_times = {}
         if self.is_main_process and os.path.isdir(eval_dir):
             backup = f"{eval_dir}_backup_{int(time.time())}"
             k = 0
@@ -768,13 +774,13 @@ class Trainer:
             # iterations > 1 compose from the GATED chain each pass (P is
             # rewritten in place), so deeper passes stay frame-consistent
             t0 = time.time()
-            for itn in range(int(net_ref.iterations)
-                             if net_ref.has("iterations") else 1):
-                P = self._network_refine_pass(
-                    P, val_idxs, batch_size, residual_scale, net_ref,
-                    resolve_flips=resolve_flips, iteration=itn)
-            self.eval_times["network_refine"] = time.time() - t0
-            cumulated_times += self.eval_times["network_refine"]
+            with tracing.span("eval.network_refine"):
+                for itn in range(int(net_ref.iterations)
+                                 if net_ref.has("iterations") else 1):
+                    P = self._network_refine_pass(
+                        P, val_idxs, batch_size, residual_scale, net_ref,
+                        resolve_flips=resolve_flips, iteration=itn)
+            cumulated_times += time.time() - t0
         if refine_icp:
             cumulated_times += self._refine_icp(P, val_idxs, icp_its,
                                                 icp_method)

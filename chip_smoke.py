@@ -2264,14 +2264,21 @@ def _refine_eval(cli, config: str, logdir: str, method: str, stages):
     launch counts set to 0 just before and read just after. Checks the
     eval files and nn_argmin's launches: 2 flip sweeps per eval batch in
     each of the two network passes, and per gated ICP stage and chunk of
-    PAIRS pairs its iterations + 1 (fitness) + 1 (the gate's score)."""
+    PAIRS pairs its iterations + 1 (fitness) + 1 (the gate's score). The
+    stages' seconds come from the port's spans, live under a host-only
+    profiler."""
+    from alignnet3d_tpu_torch import tracing
+
     wrappers = _wrappers()
     for fn in wrappers.values():
         fn.launches = 0
+    tracing.reset()
     t0 = time.perf_counter()
-    trainer = cli.main(["eval_only", "--config", config, "--refineICP",
-                        "--eval_epoch", "0", "--seed", str(SEED)])
-    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        trainer = cli.main(["eval_only", "--config", config, "--refineICP",
+                            "--eval_epoch", "0", "--seed", str(SEED)])
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {name: fn.launches for name, fn in wrappers.items()}
     ev = os.path.join(logdir, "val", "eval000000", f"refined_{method}")
@@ -2291,13 +2298,16 @@ def _refine_eval(cli, config: str, logdir: str, method: str, stages):
     expected = 2 * 2 * batches + sum((its + 2) * chunks for its in stages)
     with open(os.path.join(ev, "eval.json")) as f:
         levels = json.load(f)["corr_levels"]
-    times = trainer.eval_times
+    spans = tracing.snapshot()["spans"]
+    refine, icp = spans["eval.network_refine"], spans["eval.icp_stage"]
     print(f"{Path(config).stem} eval_only --refineICP ({method}, stages of "
           f"{list(stages)} iterations) over {n_val} val pairs: "
-          f"{wall:.2f} s wall (load, network, refine, files); network refine "
-          f"{times['network_refine']:.3f} s, ICP per stage "
-          f"{[round(s, 3) for s in times['icp_stages']]} s; corr_levels "
+          f"{wall:.2f} s wall under a host profiler (load, network, refine, "
+          f"files); network refine {refine['total_s']:.3f} s, ICP "
+          f"{icp['total_s']:.3f} s in {icp['count']} stages; corr_levels "
           f"{levels}; kernel launches {counts}")
+    check(icp["count"] == len(stages),
+          f"{config}: {icp['count']} ICP stage spans, expected {len(stages)}")
     check(counts["nn_argmin"] == expected,
           f"{config}: nn_argmin {counts['nn_argmin']} launches, expected "
           f"{expected}")

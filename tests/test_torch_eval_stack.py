@@ -11,6 +11,7 @@ numbers to 1e-4 absolute and relative, with ``mean_time``, a wall time,
 left out.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -25,7 +26,7 @@ from alignnet3d_tpu import cli as jax_cli
 from alignnet3d_tpu.config import config_from_dict as jax_config_from_dict
 from alignnet3d_tpu.data import provider as jp
 from alignnet3d_tpu.training.trainer import Trainer as JaxTrainer
-from alignnet3d_tpu_torch import cli
+from alignnet3d_tpu_torch import cli, tracing
 from alignnet3d_tpu_torch.config import config_from_dict
 from alignnet3d_tpu_torch.data.synthetic import generate_dataset
 from alignnet3d_tpu_torch.training.trainer import Trainer
@@ -69,6 +70,18 @@ def _config(basepath, logdir, **evaluation):
                                 "max_dxy": 0.15},
             **evaluation},
     }
+
+
+@contextlib.contextmanager
+def _traced():
+    """The port's spans, live under a host-only profiler over the block;
+    yields the recorder's span aggregates, filled on exit."""
+    tracing.reset()
+    spans = {}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        yield spans
+    spans.update(tracing.snapshot()["spans"])
 
 
 def _workspaces(source, root):
@@ -159,11 +172,12 @@ def test_trainer_refines_stored_predictions_like_jax(source, tmp_path):
             JaxTrainer(jax_config_from_dict(d), seed=0).train(**kwargs)
         else:
             trainer = Trainer(config_from_dict(d), seed=0, device="cpu")
-            trainer.train(**kwargs)
+            with _traced() as spans:
+                trainer.train(**kwargs)
         dirs[name] = f"{logdir}/val/eval000000/refined_p2p"
     _same_refined(dirs)
-    # the port records each cascade stage's ICP seconds
-    assert len(trainer.eval_times["icp_stages"]) == len(CASCADE)
+    # the port spans each cascade stage's ICP
+    assert spans["eval.icp_stage"]["count"] == len(CASCADE)
 
 
 def test_cli_refines_stored_predictions_like_jax(source, tmp_path):
@@ -290,15 +304,17 @@ def test_full_stack_trains_and_refines(source, tmp_path):
     d["data"]["denoise"] = {"cell": 0.5, "keep": "largest"}
     d["data"]["resample"] = {"mode": "voxel", "voxel_size": 0.05}
     path = _config_file(d, logdir)
-    trainer = cli.main(["train", "--config", path, "--device", "cpu"])
+    with _traced() as spans:
+        trainer = cli.main(["train", "--config", path, "--device", "cpu"])
     assert trainer.dataset._denoise_tag == "dn0.5l"
     assert trainer.dataset._vox_size == 0.05
-    assert trainer.eval_times["network_refine"] > 0
+    assert spans["eval.network_refine"]["count"] == 1
     assert os.path.isfile(f"{logdir}/model-0.pt")
     # the refinement method comes from the config, whatever the flag says
-    trainer = cli.main(["eval_only", "--config", path, "--refineICP",
-                        "--eval_epoch", "0", "--refineICPmethod", "p2p",
-                        "--device", "cpu"])
+    with _traced() as spans:
+        cli.main(["eval_only", "--config", path, "--refineICP",
+                  "--eval_epoch", "0", "--refineICPmethod", "p2p",
+                  "--device", "cpu"])
     ev = f"{logdir}/val/eval000000/refined_p2plane"
     for name in ("eval.json", "eval_180.json"):
         assert os.path.isfile(f"{ev}/{name}")
@@ -309,4 +325,4 @@ def test_full_stack_trains_and_refines(source, tmp_path):
         arr = np.load(f"{ev}/{key}.npy")
         assert arr.shape[0] == 6 and np.isfinite(arr).all(), key
     assert not np.load(f"{ev}/pred_s2_pc1centers.npy").any()
-    assert len(trainer.eval_times["icp_stages"]) == 1
+    assert spans["eval.icp_stage"]["count"] == 1

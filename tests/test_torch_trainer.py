@@ -160,6 +160,8 @@ def test_tpu_profile_writes_a_trace(dataset, tmp_path, batch_size, steps,
         events = json.load(f)["traceEvents"]
     ops = {e["name"] for e in events if e.get("cat") == "cpu_op"}
     assert {"aten::addmm", "aten::max"} & ops, sorted(ops)[:20]
+    # the port's own spans are ranges of the trace
+    assert "trainer.train_step" in {e["name"] for e in events}
 
 
 def test_momentum_optimizer_and_device_argument(dataset, tmp_path):
