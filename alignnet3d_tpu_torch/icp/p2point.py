@@ -7,8 +7,10 @@ runs at once: each iteration finds each source point's nearest destination
 point (``nn_argmin``, the CUDA kernel on the card), keeps the
 correspondences inside the radius, and solves the weighted update in closed
 form: yaw + translation under the constraint, a 3x3 Kabsch SVD without it.
-Clouds are padded to a common length; padded points never become
-correspondences.
+Under the constraint the update after the sweep is ``icp_update``, one CUDA
+kernel an iteration on the card (``csrc/icp_update.cu``), where the JAX
+package's ``lax.scan`` body is fused by XLA. Clouds are padded to a common
+length; padded points never become correspondences.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 from alignnet3d_tpu_torch import tracing
 from alignnet3d_tpu_torch.geometry import get_mat_angle
+from alignnet3d_tpu_torch.ops._build import load_library
 from alignnet3d_tpu_torch.ops.nn_kernels import nn_argmin
 
 logger = logging.getLogger("alignnet3d_tpu_torch")
@@ -83,14 +86,122 @@ def _gate(src_mask, d2, radius2):
     return (src_mask & (d2 < radius2)).to(torch.float64)
 
 
+def _moved_by(src64, R, t):
+    """R src + t per pair: (B, n, 3), (B, 3, 3), (B, 3) -> (B, n, 3)."""
+    return torch.einsum("bnd,bed->bne", src64, R) + t[:, None, :]
+
+
+def icp_update_plain(src64, src_mask, dst, idx, d2, radius2, R, t, moved32):
+    """The plain version of ``icp_update``: the eager iteration body after
+    the sweep, in place on R, t and moved32."""
+    moved = _moved_by(src64, R, t)
+    w = _gate(src_mask, d2, radius2)
+    R_inc, t_inc = _estimate_yaw_translation(
+        moved, gather_points(dst, idx).to(torch.float64), w)
+    # no correspondences -> keep the current transform
+    has = (torch.sum(w, dim=1) > 0)
+    eye = torch.eye(3, dtype=torch.float64, device=R.device).expand_as(R)
+    R_inc = torch.where(has[:, None, None], R_inc, eye)
+    t_inc = torch.where(has[:, None], t_inc, torch.zeros_like(t_inc))
+    R_new = R_inc @ R
+    t_new = torch.einsum("bij,bj->bi", R_inc, t) + t_inc
+    R.copy_(R_new)
+    t.copy_(t_new)
+    moved32.copy_(_moved_by(src64, R, t))
+
+
+def _check(src64, src_mask, dst, idx, d2, R, t, moved32):
+    """Refuse what the kernel does not take."""
+    b, n = src64.shape[:2]
+    n2 = dst.shape[1]
+    args = (("src64", src64, torch.float64, (b, n, 3)),
+            ("src_mask", src_mask, torch.bool, (b, n)),
+            ("dst", dst, torch.float32, (b, n2, 3)),
+            ("idx", idx, torch.int64, (b, n)),
+            ("d2", d2, torch.float32, (b, n)),
+            ("R", R, torch.float64, (b, 3, 3)),
+            ("t", t, torch.float64, (b, 3)),
+            ("moved32", moved32, torch.float32, (b, n, 3)))
+    if src64.device.type != "cuda":
+        raise ValueError(f"icp_update: unsupported device {src64.device}")
+    for arg, x, dtype, shape in args:
+        if x.device != src64.device:
+            raise ValueError("icp_update: all inputs must be on one device")
+        if x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"icp_update: {arg} must be {dtype} of shape "
+                             f"{shape}, not {x.dtype} {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"icp_update: {arg} must be contiguous")
+    if b < 1 or n < 1 or n2 < 1:
+        raise ValueError(f"icp_update: unsupported shapes "
+                         f"{tuple(src64.shape)}, {n2} destination points")
+
+
+def _launch(src64, src_mask, dst, idx, d2, radius2, R, t, moved32):
+    """Check the tensors and launch the kernel."""
+    _check(src64, src_mask, dst, idx, d2, R, t, moved32)
+    with torch.cuda.device(src64.device):
+        rc = load_library().icp_update_launch(
+            src64.data_ptr(), src_mask.data_ptr(), dst.data_ptr(),
+            idx.data_ptr(), d2.data_ptr(), radius2, *src64.shape[:2],
+            dst.shape[1], R.data_ptr(), t.data_ptr(), moved32.data_ptr(),
+            torch.cuda.current_stream(src64.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"icp_update: kernel launch failed, CUDA error "
+                           f"{rc}")
+
+
+def icp_update(src64, src_mask, dst, idx, d2, radius2: float, R, t, moved32):
+    """One constrained point-to-point update after the sweep, in place:
+    from nn_argmin's (idx, d2) for ``moved32``, the yaw + translation
+    increment of the radius-gated correspondences is composed into R
+    (B, 3, 3) and t (B, 3) (kept where a pair has none), and ``moved32``
+    becomes f32(R src + t), the next sweep's points.
+
+    src64 (B, n, 3) float64, src_mask (B, n) bool, dst (B, n2, 3) float32,
+    idx (B, n) int64, d2 (B, n) float32, radius2 the squared radius as a
+    float32 value. CUDA tensors launch the kernel (``csrc/icp_update.cu``),
+    CPU tensors run ``icp_update_plain``. Each launch adds one to
+    ``icp_update.launches`` and, under a profiler, to the counter
+    ``icp.fused_steps``."""
+    if src64.device.type == "cpu":
+        return icp_update_plain(src64, src_mask, dst, idx, d2, radius2, R, t,
+                                moved32)
+    _launch(src64, src_mask, dst, idx, d2, radius2, R, t, moved32)
+    icp_update.launches += 1
+    tracing.count("icp.fused_steps")
+
+
+icp_update.launches = 0
+
+
+def _iterate_constrained(src64, sm, dst32, dm, R, t, radius2, its):
+    """``its`` constrained point-to-point iterations, each a sweep and one
+    ``icp_update``; returns the final (R, t)."""
+    if its == 0:
+        return R, t
+    # the update writes R and t in place: private contiguous copies
+    R = R.clone(memory_format=torch.contiguous_format)
+    t = t.clone(memory_format=torch.contiguous_format)
+    src64, sm = src64.contiguous(), sm.contiguous()
+    moved32 = _moved_by(src64, R, t).to(torch.float32).contiguous()
+    for _ in range(its):
+        with tracing.span("icp.step"):
+            idx, d2 = _nn_correspondences(moved32, dst32, dm)
+            icp_update(src64, sm, dst32, idx, d2, radius2, R, t, moved32)
+    return R, t
+
+
 def run_icp(src, src_mask, dst, dst_mask, init_transforms, radius, its,
             estimate, *, device):
     """The ICP loop shared by the point-to-point and point-to-plane
     variants. ``estimate(moved, idx, w, dst64)`` returns the per-pair
     increment (R (B,3,3), t (B,3)) in float64 from the moved source points,
     the nearest-neighbour indices, the radius-gate weights and the
-    destination clouds in float64. Returns numpy (transforms (B,4,4)
-    float64, fitness (B,), inlier_rmse (B,))."""
+    destination clouds in float64; ``estimate=None`` is the constrained
+    point-to-point update, ``icp_update`` (one kernel an iteration on the
+    card). Returns numpy (transforms (B,4,4) float64, fitness (B,),
+    inlier_rmse (B,))."""
     def dev(x, dtype):
         return torch.as_tensor(np.asarray(x), device=device).to(dtype)
 
@@ -103,7 +214,6 @@ def run_icp(src, src_mask, dst, dst_mask, init_transforms, radius, its,
             # nearest-neighbour search stays float32.
             src64 = dev(src, torch.float64)
             dst32 = dev(dst, torch.float32).contiguous()
-            dst64 = dst32.to(torch.float64)
             sm = dev(src_mask, torch.bool)
             dm = dev(dst_mask, torch.bool).contiguous()
             init = np.asarray(init_transforms, np.float64)
@@ -111,34 +221,38 @@ def run_icp(src, src_mask, dst, dst_mask, init_transforms, radius, its,
             t = dev(init[:, :3, 3], torch.float64)
             # the radius is squared in float32, as the JAX package does
             radius2 = float(np.float32(radius) * np.float32(radius))
-            eye = torch.eye(3, dtype=torch.float64,
-                            device=R.device).expand_as(R)
+            if estimate is not None:
+                dst64 = dst32.to(torch.float64)
+                eye = torch.eye(3, dtype=torch.float64,
+                                device=R.device).expand_as(R)
 
-        def moved_by(R, t):
-            return torch.einsum("bnd,bed->bne", src64, R) + t[:, None, :]
-
+        tracing.count("icp.steps", its)
         # a span an iteration too: a profile's idle gaps are named by the
         # innermost host range, which a whole loop of ~20 ops an iteration
         # leaves thousands of events behind
         with tracing.span("icp.iterate"):
-            for _ in range(its):
-                with tracing.span("icp.step"):
-                    moved = moved_by(R, t)
-                    idx, d2 = _nn_correspondences(moved.to(torch.float32),
-                                                  dst32, dm)
-                    w = _gate(sm, d2, radius2)
-                    R_inc, t_inc = estimate(moved, idx, w, dst64)
-                    # no correspondences -> keep the current transform
-                    has = (torch.sum(w, dim=1) > 0)
-                    R_inc = torch.where(has[:, None, None], R_inc, eye)
-                    t_inc = torch.where(has[:, None], t_inc,
-                                        torch.zeros_like(t_inc))
-                    R, t = (R_inc @ R,
-                            torch.einsum("bij,bj->bi", R_inc, t) + t_inc)
+            if estimate is None:
+                R, t = _iterate_constrained(src64, sm, dst32, dm, R, t,
+                                            radius2, its)
+            else:
+                for _ in range(its):
+                    with tracing.span("icp.step"):
+                        moved = _moved_by(src64, R, t)
+                        idx, d2 = _nn_correspondences(
+                            moved.to(torch.float32), dst32, dm)
+                        w = _gate(sm, d2, radius2)
+                        R_inc, t_inc = estimate(moved, idx, w, dst64)
+                        # no correspondences -> keep the current transform
+                        has = (torch.sum(w, dim=1) > 0)
+                        R_inc = torch.where(has[:, None, None], R_inc, eye)
+                        t_inc = torch.where(has[:, None], t_inc,
+                                            torch.zeros_like(t_inc))
+                        R, t = (R_inc @ R,
+                                torch.einsum("bij,bj->bi", R_inc, t) + t_inc)
 
         with tracing.span("icp.readback"):
-            _, d2 = _nn_correspondences(moved_by(R, t).to(torch.float32),
-                                        dst32, dm)
+            _, d2 = _nn_correspondences(
+                _moved_by(src64, R, t).to(torch.float32), dst32, dm)
             d2 = d2.to(torch.float64)
             inlier = _gate(sm, d2, radius2)
             n_src = torch.clamp_min(torch.sum(sm.to(torch.float64), dim=1),
@@ -175,10 +289,10 @@ def icp_p2point_batch(src, src_mask, dst, dst_mask, init_transforms,
     Returns (transforms (B,4,4) float64, fitness (B,), inlier_rmse (B,)),
     numpy.
     """
-    solve = _estimate_yaw_translation if with_constraint else _estimate_full
-
-    def estimate(moved, idx, w, dst64):
-        return solve(moved, gather_points(dst64, idx), w)
+    estimate = None  # icp_update: the closed-form yaw + translation
+    if not with_constraint:
+        def estimate(moved, idx, w, dst64):
+            return _estimate_full(moved, gather_points(dst64, idx), w)
 
     return run_icp(src, src_mask, dst, dst_mask, init_transforms, radius, its,
                    estimate, device=device)

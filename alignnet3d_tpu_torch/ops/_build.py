@@ -35,6 +35,7 @@ NVCC_FLAGS = (  # compile flags of every source; the link adds -shared
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C prototypes of the launchers, in csrc/*.cu; every one returns the CUDA
 # error code of its launch.
 _SIGNATURES = {
@@ -62,6 +63,9 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
     ),
     "edge_train_reduce_launch": (_P, _I, _I, _P, _P),
+    "icp_update_launch": (
+        _P, _P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P, _P,
+    ),
 }
 
 

@@ -14,7 +14,7 @@ with the three ``ALIGNNET_*`` variables a user sets, running this module:
 A worker joins the process group (``multihost.maybe_initialize``), runs
 ``cli.main`` on the arguments after ``--``, and prints one JSON line: its
 rank, the process group's backend, a SHA-256 of its parameters and the
-launch counts of the five kernel wrappers. The rendezvous is passed explicitly (a ``file://`` path is
+launch counts of the six kernel wrappers. The rendezvous is passed explicitly (a ``file://`` path is
 private to its caller), so runs in parallel never share a port.
 """
 
@@ -100,7 +100,8 @@ def run_workers(n_proc: int, cli_args: list[str], coordinator: str,
 
 
 def kernel_launches() -> dict:
-    """The launch counts of the five kernel wrappers in this process."""
+    """The launch counts of the six kernel wrappers in this process."""
+    from alignnet3d_tpu_torch.icp.p2point import icp_update
     from alignnet3d_tpu_torch.ops.edge_conv_kernels import fused_edge_stage
     from alignnet3d_tpu_torch.ops.edge_train_kernels import (
         fused_edge_stage_train,
@@ -111,7 +112,7 @@ def kernel_launches() -> dict:
 
     return {f.__name__: f.launches for f in (
         fused_pointnet, nn_argmin, knn_points, fused_edge_stage,
-        fused_edge_stage_train)}
+        fused_edge_stage_train, icp_update)}
 
 
 def params_digest(model) -> str:

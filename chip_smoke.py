@@ -105,6 +105,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -213,6 +214,11 @@ BASELINE_LAUNCHES = {"o3_p2p": ICP_ITS + 1, "o3_gicp": 0, "o3_gicp_fast": 0,
                      "o3_gicp_p2p": ICP_ITS + 1,
                      "o3_gicp_fast_p2p": ICP_ITS + 1,
                      "multistart": 16 + ICP_ITS + 1}
+# icp_update launches per run: one an iteration of each constrained
+# point-to-point loop, multistart's coarse 15 too
+BASELINE_UPDATES = {"o3_p2p": ICP_ITS, "o3_gicp": 0, "o3_gicp_fast": 0,
+                    "o3_gicp_p2p": ICP_ITS, "o3_gicp_fast_p2p": ICP_ITS,
+                    "multistart": 15 + ICP_ITS}
 BASELINE_CPU_PAIRS = 16  # of the PAIRS val pairs, also run on the CPU
 MULTISTART_CPU_PAIRS = 4  # multistart's: 8 yaw hypotheses a pair
 # share of pairs within ICP_TOL, card vs CPU: the ICP-based variants, and
@@ -467,6 +473,74 @@ def nn_argmin_phase(spec, pcs1, pcs2):
         nbytes = (src.numel() + dst.numel()) * 4 + mask.numel() + idx.numel() * 12
         result[name] = (err, ms, plain_ms,
                         *bound(9 * pairs, FP32_LANE_OPS, nbytes))
+    return result
+
+
+ICP_UPDATE_BATCHES = (15, 64)   # the track cell's mean and p95 request
+ICP_UPDATE_BYTES = 24 + 1 + 8 + 4 + 12   # a source point an iteration: src
+#                  float64, mask, idx, d2, moved32; dst adds 12 a point
+
+
+def _f32_ulps(a, b):
+    """Elementwise distance of two float32 tensors in units in the last
+    place (bit patterns ordered as their values)."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def icp_update_phase(pcs1, pcs2):
+    """Kernel 6 (``icp_update``) against its twin for one iteration at the
+    tracker's ICP shapes (B pairs of up to 4,096 points, from the truth's
+    neighbourhood: identity inits on scans of one scene), and the time of
+    each: R and t within 1e-12, the next sweep's points bit-equal on 99.9%
+    and within one float32 ulp everywhere. {B: (err, ms, plain_ms, bound,
+    bound_by)}."""
+    from alignnet3d_tpu_torch.icp import p2point as tp2p
+    from alignnet3d_tpu_torch.ops import nn_kernels as nk
+
+    rng = np.random.default_rng(SEED + 6)
+    radius2 = float(np.float32(0.1) * np.float32(0.1))
+    result = {}
+    for b in ICP_UPDATE_BATCHES:
+        a1, m1 = _ragged(pcs1[:b], 4096, rng)
+        a2, m2 = _ragged(pcs2[:b], 4096, rng)
+        src64 = torch.from_numpy(a1.astype(np.float64)).cuda()
+        sm = torch.from_numpy(m1).cuda()
+        dst = torch.from_numpy(a2).cuda()
+        dm = torch.from_numpy(m2).cuda()
+        R = torch.eye(3, dtype=torch.float64, device="cuda").repeat(b, 1, 1)
+        t = torch.zeros((b, 3), dtype=torch.float64, device="cuda")
+        moved32 = tp2p._moved_by(src64, R, t).to(torch.float32)
+        idx, d2 = nk.nn_argmin(moved32, dst, dm)
+        out = {}
+        for name, fn in (("kernel", tp2p.icp_update),
+                         ("plain", tp2p.icp_update_plain)):
+            out[name] = (R.clone(), t.clone(), moved32.clone())
+            fn(src64, sm, dst, idx, d2, radius2, *out[name])
+        torch.cuda.synchronize()
+        err = max(float((out["kernel"][k] - out["plain"][k]).abs().max())
+                  for k in (0, 1))
+        ulps = _f32_ulps(out["kernel"][2], out["plain"][2])
+        same = float((ulps == 0).double().mean())
+        ulp = int(ulps.max())
+        args = (src64, sm, dst, idx, d2, radius2, R, t, moved32)
+        ms = cuda_ms(lambda: tp2p.icp_update(*args), iters=100)
+        dev_ms = device_ms(lambda: tp2p.icp_update(*args), iters=100)
+        plain_ms = cuda_ms(lambda: tp2p.icp_update_plain(*args), iters=30)
+        nbytes = b * 4096 * (ICP_UPDATE_BYTES + 12)
+        print(f"icp_update B={b} n=4096 (valid {int(m1.sum())} src, "
+              f"{int(m2.sum())} dst points): R, t max_abs_err={err:.3e}, "
+              f"moved32 bit-equal {same:.4%} (max {ulp} ulp); kernel "
+              f"{ms:.4f} ms (on the card alone {dev_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms; bytes bound {nbytes / HBM_BYTES * 1e3:.4f}"
+              f" ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s)")
+        check(err <= 1e-12, f"icp_update B={b}: R, t off the twin by {err}")
+        check(same >= 0.999 and ulp <= 1,
+              f"icp_update B={b}: moved32 bit-equal on {same:.4%}, {ulp} ulp")
+        result[b] = (err, ms, plain_ms, *bound(0.0, FP32_FLOPS, nbytes))
     return result
 
 
@@ -2264,9 +2338,10 @@ def _refine_eval(cli, config: str, logdir: str, method: str, stages):
     launch counts set to 0 just before and read just after. Checks the
     eval files and nn_argmin's launches: 2 flip sweeps per eval batch in
     each of the two network passes, and per gated ICP stage and chunk of
-    PAIRS pairs its iterations + 1 (fitness) + 1 (the gate's score). The
+    PAIRS pairs its iterations + 1 (fitness) + 1 (the gate's score); and
+    icp_update's: with p2p one an iteration of each stage and chunk. The
     stages' seconds come from the port's spans, live under a host-only
-    profiler."""
+    profiler. Returns the launches of nn_argmin and icp_update."""
     from alignnet3d_tpu_torch import tracing
 
     wrappers = _wrappers()
@@ -2296,6 +2371,7 @@ def _refine_eval(cli, config: str, logdir: str, method: str, stages):
     batches = -(-n_val // trainer.batch_size)
     chunks = -(-n_val // PAIRS)
     expected = 2 * 2 * batches + sum((its + 2) * chunks for its in stages)
+    updates = sum(its * chunks for its in stages) * (method == "p2p")
     with open(os.path.join(ev, "eval.json")) as f:
         levels = json.load(f)["corr_levels"]
     spans = tracing.snapshot()["spans"]
@@ -2311,7 +2387,10 @@ def _refine_eval(cli, config: str, logdir: str, method: str, stages):
     check(counts["nn_argmin"] == expected,
           f"{config}: nn_argmin {counts['nn_argmin']} launches, expected "
           f"{expected}")
-    return counts["nn_argmin"]
+    check(counts["icp_update"] == updates,
+          f"{config}: icp_update {counts['icp_update']} launches, expected "
+          f"{updates}")
+    return {name: counts[name] for name in ("nn_argmin", "icp_update")}
 
 
 def _pose_errors(t, a, world_t, gt_a):
@@ -2330,7 +2409,7 @@ def refinement_phase(basepath: str, workdir: str):
     2-stage gated p2p cascade), counting launches; (c) ICP from the ground
     truth perturbed by up to REFINE_PERTURB, both methods, gate on: all
     PAIRS val pairs on the card, REFINE_CPU_PAIRS of them on the CPU.
-    Returns the nn_argmin launches of (b)."""
+    Returns the nn_argmin and icp_update launches of (b)."""
     from alignnet3d_tpu_torch import cli
     from alignnet3d_tpu_torch.data.provider import PackedDataset, getDataFiles
     from alignnet3d_tpu_torch.geometry import (
@@ -2359,10 +2438,10 @@ def refinement_phase(basepath: str, workdir: str):
     os.makedirs(os.path.join(basedir, "cascade"))
     shutil.copy(os.path.join(basedir, "fullstack", "model-0.pt"),
                 os.path.join(basedir, "cascade", "model-0.pt"))
-    launches = _refine_eval(cli, full, os.path.join(basedir, "fullstack"),
-                            "p2plane", [30])
-    launches += _refine_eval(cli, cascade, os.path.join(basedir, "cascade"),
-                             "p2p", [30, 20])
+    launches = Counter(_refine_eval(
+        cli, full, os.path.join(basedir, "fullstack"), "p2plane", [30]))
+    launches.update(_refine_eval(
+        cli, cascade, os.path.join(basedir, "cascade"), "p2p", [30, 20]))
 
     ds = PackedDataset(basepath)
     val = getDataFiles(f"{basepath}/split/val.txt")[:PAIRS]
@@ -2608,7 +2687,8 @@ def trained_runs_phase(basepath: str, workdir: str, card: str):
           "two-stage request: non-finite answer or wrong shape")
     batches = -(-PAIRS // aligner.batch_size)
     expected = {"fused_pointnet": 3 * batches * 2,
-                "nn_argmin": 2 * batches * 2 + ICP_ITS + 1}
+                "nn_argmin": 2 * batches * 2 + ICP_ITS + 1,
+                "icp_update": ICP_ITS}
     for name, want in expected.items():
         check(counts[name] == want,
               f"two-stage request: {name} {counts[name]} launches, expected "
@@ -2690,10 +2770,11 @@ def _pose_agree(t1, a1, t2, a2):
 def _run_baselines(cli, paths, device: str, counts: bool = False,
                    variants=BASELINE_ORDER):
     """Each of ``variants`` through ``alignnet3d_tpu_torch.cli train
-    --config``, in eval_icp.sh's order; with ``counts``, nn_argmin's
-    launches set to 0 just before each run and read just after, and the
-    card's peak memory. Returns {variant: (seconds, launches, peak
-    bytes)}."""
+    --config``, in eval_icp.sh's order; with ``counts``, nn_argmin's and
+    icp_update's launches set to 0 just before each run and read just
+    after, and the card's peak memory. Returns {variant: (seconds,
+    {kernel: launches}, peak bytes)}."""
+    from alignnet3d_tpu_torch.icp.p2point import icp_update
     from alignnet3d_tpu_torch.ops.nn_kernels import nn_argmin
 
     # the runner logs both eval dicts of every run; this script prints its
@@ -2707,12 +2788,14 @@ def _run_baselines(cli, paths, device: str, counts: bool = False,
             if counts:
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
-                nn_argmin.launches = 0
+                nn_argmin.launches = icp_update.launches = 0
             t0 = time.perf_counter()
             cli.main(["train", "--config", paths[vname], "--device", device])
             if counts:
                 torch.cuda.synchronize()
-            out[vname] = (time.perf_counter() - t0, nn_argmin.launches,
+            out[vname] = (time.perf_counter() - t0,
+                          {"nn_argmin": nn_argmin.launches,
+                           "icp_update": icp_update.launches},
                           torch.cuda.max_memory_allocated() if counts else 0)
     finally:
         log.setLevel(level)
@@ -2843,15 +2926,17 @@ def baseline_phase(basepath: str, workdir: str, card: str):
     """The classical baselines (``evaluation.special.mode 'icp'``) at the
     generated dataset's full width: (a) the five variants of
     make_icp_configs.py and multistart through the CLI on the card over the
-    PAIRS val pairs, in eval_icp.sh's order, counting nn_argmin's launches;
-    (b) the same runner on a copy of the dataset that holds the first
-    BASELINE_CPU_PAIRS of them (MULTISTART_CPU_PAIRS for multistart), on
-    the card and on the CPU, compared pair by pair (the same chunk of
+    PAIRS val pairs, in eval_icp.sh's order, counting nn_argmin's and
+    icp_update's launches; (b) the same runner on a copy of the dataset
+    that holds the first BASELINE_CPU_PAIRS of them (MULTISTART_CPU_PAIRS
+    for multistart), on the card and on the CPU, compared pair by pair (the
+    same chunk of
     pairs, so that pad_full_clouds draws the same subsamples of >4,096-point
     clouds on both); (c) recovery of
     RECOVERY_MOTION on the RECOVERY_CLOUDS largest val clouds by the two
     ``*_p2p`` pipelines, card against CPU; (d) kernel 2 at multistart's
-    coarse shape. Returns (the launches of (a), (d)'s kernel row)."""
+    coarse shape. Returns (the nn_argmin and icp_update launches of (a),
+    (d)'s kernel row)."""
     from alignnet3d_tpu_torch import cli
     from alignnet3d_tpu_torch.data.provider import getDataFiles
 
@@ -2877,9 +2962,10 @@ def baseline_phase(basepath: str, workdir: str, card: str):
     # (a) the main path
     runs, paths = sets["card"]
     stats = _run_baselines(cli, paths, "cuda", counts=True)
-    launches = 0
+    launches = Counter()
     for vname in BASELINE_ORDER:
-        seconds, n_launch, peak = stats[vname]
+        seconds, n_launches, peak = stats[vname]
+        n_launch = n_launches["nn_argmin"]
         (t, a, c), ev = _baseline_preds(runs, vname)
         check(t.shape == (PAIRS, 3) and a.shape == (PAIRS, 1)
               and np.isfinite(t).all() and np.isfinite(a).all()
@@ -2898,7 +2984,10 @@ def baseline_phase(basepath: str, workdir: str, card: str):
         check(n_launch == BASELINE_LAUNCHES[vname],
               f"baseline {vname}: nn_argmin {n_launch} launches, expected "
               f"{BASELINE_LAUNCHES[vname]}")
-        launches += n_launch
+        check(n_launches["icp_update"] == BASELINE_UPDATES[vname],
+              f"baseline {vname}: icp_update {n_launches['icp_update']} "
+              f"launches, expected {BASELINE_UPDATES[vname]}")
+        launches.update(n_launches)
 
     _global_breakdown(basepath, val, card)
 
@@ -2960,6 +3049,7 @@ def baseline_phase(basepath: str, workdir: str, card: str):
 
 
 def _wrappers():
+    from alignnet3d_tpu_torch.icp import p2point as tp2p
     from alignnet3d_tpu_torch.ops import edge_conv_kernels as ek
     from alignnet3d_tpu_torch.ops import edge_train_kernels as et
     from alignnet3d_tpu_torch.ops import knn_kernels as kk
@@ -2969,7 +3059,8 @@ def _wrappers():
     return {"fused_pointnet": pk.fused_pointnet, "nn_argmin": nk.nn_argmin,
             "knn_points": kk.knn_points,
             "fused_edge_stage": ek.fused_edge_stage,
-            "fused_edge_stage_train": et.fused_edge_stage_train}
+            "fused_edge_stage_train": et.fused_edge_stage_train,
+            "icp_update": tp2p.icp_update}
 
 
 def serve(aligner, kinds, requests, sync):
@@ -3433,12 +3524,14 @@ def main() -> int:
     warm_card()
     k1 = fused_pointnet_phase(spec, state, requests[0][0] + requests[0][1])
     k2 = nn_argmin_phase(spec, *requests[2])
+    k6 = icp_update_phase(*requests[2])
     dspec, dstate = specs["dgcnn"]
     graph, k3 = knn_points_phase(dspec, requests[0][0] + requests[0][1])
     k4 = fused_edge_stage_phase(dspec, dstate, graph)
 
     paths = (  # (model, request kinds, requests, kernels that must launch)
-        ("pointnet", REQUESTS, requests, ("fused_pointnet", "nn_argmin")),
+        ("pointnet", REQUESTS, requests,
+         ("fused_pointnet", "nn_argmin", "icp_update")),
         ("dgcnn", DGCNN_REQUESTS, requests[:len(DGCNN_REQUESTS)],
          ("knn_points", "fused_edge_stage")),
     )
@@ -3447,12 +3540,15 @@ def main() -> int:
         counts = serve_path(*specs[model], kinds, reqs, owned)
         launches.update((name, counts[name]) for name in owned)
         # one forward batch per request, 3 backbones per forward; 2 NN
-        # sweeps for the flips, ICP_ITS + 1 for ICP
+        # sweeps for the flips, ICP_ITS + 1 for ICP; ICP_ITS pose updates
         expected = {name: 3 * len(kinds) for name in owned}
         if "nn_argmin" in owned:
             expected["nn_argmin"] = sum(
                 2 * kw.get("resolve_flips", False)
                 + (ICP_ITS + 1) * kw.get("refine_icp", False) for _, kw in kinds)
+        if "icp_update" in owned:
+            expected["icp_update"] = sum(
+                ICP_ITS * kw.get("refine_icp", False) for _, kw in kinds)
         for name in owned:
             check(counts[name] == expected[name],
                   f"{name}: {counts[name]} launches, expected {expected[name]}")
@@ -3486,7 +3582,7 @@ def main() -> int:
         for counts in (data_parallel_phase(basepath, workdir, card),
                        int8_phase(spec, state, requests, card)):
             for name in ("fused_pointnet", "nn_argmin", "knn_points",
-                         "fused_edge_stage_train"):
+                         "fused_edge_stage_train", "icp_update"):
                 launches[name] += counts[name]
         model_options_phase(basepath, card)
         pointnet_training_phase(basepath, workdir, card)
@@ -3496,15 +3592,17 @@ def main() -> int:
                        kitti_phase(workdir, card)):
             for name, n in counts.items():
                 launches[name] += n
-        # nn_argmin's launches: the PointNet serving path's and the
-        # refinement path's
-        launches["nn_argmin"] += refinement_phase(basepath, workdir)
+        # nn_argmin's and icp_update's launches: the PointNet serving
+        # path's and the refinement path's
+        for name, n in refinement_phase(basepath, workdir).items():
+            launches[name] += n
         # and the two-stage request's, coarse + refiner
         for name, n in trained_runs_phase(basepath, workdir, card).items():
             launches[name] += n
         # and the classical baselines' through the CLI
-        n, _ = baseline_phase(basepath, workdir, card)
-        launches["nn_argmin"] += n
+        counts, _ = baseline_phase(basepath, workdir, card)
+        for name, n in counts.items():
+            launches[name] += n
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -3521,11 +3619,14 @@ def main() -> int:
          "alignnet3d_tpu/ops/edge_conv_kernels.py:78", edge),
         ("fused_edge_stage_train", "edge_train.cu",
          "alignnet3d_tpu/ops/edge_train_kernels.py:421", k5),
+        ("icp_update", "icp_update.cu",
+         "none (XLA's fused lax.scan, alignnet3d_tpu/icp/p2point.py:128)",
+         k6[max(ICP_UPDATE_BATCHES)]),
     )
     # library_ms is null: no one PyTorch call computes any of these
     # functions (a fused chain + max, a masked argmin, a top-k ordered
     # NaN first with index ties, a gathered 2-layer chain + max, the same with
-    # batch-statistic BN and its gradient)
+    # batch-statistic BN and its gradient, a gated weighted yaw fit)
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"alignnet3d_tpu_torch/csrc/{src}", "replaces": replaces,

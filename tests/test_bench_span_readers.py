@@ -1,5 +1,5 @@
 """The benchmark's readers of the port's own spans and counters
-(``benchmark/layer_metrics/_spans.py`` and the seven metrics over it): the
+(``benchmark/layer_metrics/_spans.py`` and the eight metrics over it): the
 number each gives from a hand-built recorder state, nothing from an empty
 one or from a program without a recorder, each found by name through the
 harness, each listed only in cells that report what it moves, and a
@@ -37,7 +37,8 @@ STATE = {
         "trainer.train_step": _agg(5, 0.450, 0.050),
         "data.assemble": _agg(6, 0.012, 0.012),
     },
-    "counters": {"serving.rows": 512, "serving.padded_rows": 448},
+    "counters": {"serving.rows": 512, "serving.padded_rows": 448,
+                 "icp.steps": 120, "icp.fused_steps": 90},
     "records": [],
 }
 # metric -> (its value from STATE, the spans and counters it needs)
@@ -50,7 +51,10 @@ EXPECTED = {
                                         "serving.rows")),
     "trainer.host_ms.train": (90.0, ("trainer.train_step",)),
     "data.assemble_ms.train": (2.0, ("data.assemble",)),
+    "icp.fused_step_pct.track": (75.0, ("icp.fused_steps", "icp.steps")),
 }
+# where a metric's number comes from, when not the host clock
+SOURCES = {"icp.fused_step_pct.track": "program_counter"}
 SPEC = harness.load_spec()
 ENTRIES = {m["name"]: m for m in SPEC["per_layer"]}
 
@@ -93,7 +97,7 @@ def test_reader_reads_nothing_without_a_recorder(name, monkeypatch):
 @pytest.mark.parametrize("name", sorted(EXPECTED))
 def test_entry_lists_cells_that_report_what_it_moves(name):
     entry = ENTRIES[name]
-    assert entry["source"] == "host_clock"
+    assert entry["source"] == SOURCES.get(name, "host_clock")
     moved = next(e for e in SPEC["end_to_end"] if e["name"] == entry["moves"])
     cells = {w["name"] for w in SPEC["workloads"]}
     assert entry["workloads"] and set(entry["workloads"]) <= cells
@@ -104,7 +108,8 @@ def test_entry_lists_cells_that_report_what_it_moves(name):
 
 def test_readers_read_a_traced_request_and_batch():
     """Every reader but the training step's (tests/test_torch_tracing.py
-    holds that span) reads a request and a prefetched batch."""
+    holds that span) reads a request and a prefetched batch; the share of
+    fused ICP steps reads nothing on the CPU, where no step is fused."""
     spec = ModelSpec(num_points=32, num_bins=8, s1_backbone=(8, 16),
                      s1_mlp=(16,), s2_backbone=(8, 16), s2_mlp=(16,),
                      embedding=(8, 16), remaining_mlp=(16,))
@@ -116,8 +121,11 @@ def test_readers_read_a_traced_request_and_batch():
         aligner.align(clouds[:4], clouds[4:], resolve_flips=True,
                       refine_icp=True, icp_its=2)
         list(PrefetchIterator(lambda i: np.zeros(3), 2, prefetch=1))
-    for name in sorted(set(EXPECTED) - {"trainer.host_ms.train"}):
+    on_card = {"trainer.host_ms.train", "icp.fused_step_pct.track"}
+    for name in sorted(set(EXPECTED) - on_card):
         value = harness.reader(name)({})
         assert value is not None and math.isfinite(value) and value > 0, name
+    assert tracing.snapshot()["counters"]["icp.steps"] == 2
+    assert harness.reader("icp.fused_step_pct.track")({}) is None
     assert harness.reader("serving.padded_pct.track")({}) == pytest.approx(
         100.0 * 124 / 128)

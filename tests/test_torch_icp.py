@@ -82,6 +82,26 @@ def test_icp_p2point_matches_jax(constrained):
     np.testing.assert_allclose(got[2] ** 2, want[2] ** 2, atol=3e-5)
 
 
+@pytest.mark.parametrize("seed,its,radius", [(1, 10, 0.5), (5, 30, 0.1),
+                                              (9, 1, 0.05)])
+def test_constrained_icp_is_bit_equal_to_the_eager_loop(seed, its, radius):
+    """On the CPU the constrained loop (a sweep and ``icp_update``, whose
+    plain version runs here) gives what the eager loop with the closed-form
+    callback gave, bit for bit: transforms, fitness and RMSE."""
+    a, am, d, dm, init = _pairs(seed)
+
+    def estimate(moved, idx, w, dst64):
+        return tp2p._estimate_yaw_translation(
+            moved, tp2p.gather_points(dst64, idx), w)
+
+    got = tp2p.icp_p2point_batch(a, am, d, dm, init, radius=radius, its=its,
+                                 device="cpu")
+    want = tp2p.run_icp(a, am, d, dm, init, radius, its, estimate,
+                        device="cpu")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
 def test_icp_p2point_padding_and_no_correspondence_match_jax():
     """Poisoned padding changes nothing, and a pair with no point inside
     the radius keeps its init with fitness 0, as in the JAX package."""

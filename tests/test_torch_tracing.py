@@ -113,8 +113,11 @@ def test_a_request_records_every_span(aligner, k):
     assert ids[records["icp.iterate"][0].parent] == "icp.run"
     assert {ids[r.parent] for r in records["icp.step"]} == {"icp.iterate"}
     assert ids[records["api.icp_pad"][0].parent] == "api.align"
+    # ICP's steps; none fused on the CPU, where the update's plain
+    # version runs
     assert snap["counters"] == {"serving.rows": 128,
-                                "serving.padded_rows": 128 - k}
+                                "serving.padded_rows": 128 - k,
+                                "icp.steps": 2}
     # every span is also a range on the profiler's own clock
     names = {e.name for e in prof.events()}
     assert set(PER_REQUEST + PER_CHUNK) <= names
