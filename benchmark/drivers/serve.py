@@ -84,14 +84,13 @@ def _port(cell, device, seed_w, seed_a):
     return aligner, weights
 
 
-def _counters():
-    from alignnet3d_tpu_torch.ops.edge_conv_kernels import fused_edge_stage
-    from alignnet3d_tpu_torch.ops.knn_kernels import knn_points
+def _counters(model):
+    """{kernel: the port's wrapper with ``.launches``}: the backbone's
+    serving kernels and ``nn_argmin`` (flips and ICP)."""
     from alignnet3d_tpu_torch.ops.nn_kernels import nn_argmin
-    from alignnet3d_tpu_torch.ops.pointnet_kernels import fused_pointnet
 
-    return {"fused_pointnet": fused_pointnet, "nn_argmin": nn_argmin,
-            "knn_points": knn_points, "fused_edge_stage": fused_edge_stage}
+    return {**harness.backbone(model["backbone"]).counters(train=False),
+            "nn_argmin": nn_argmin}
 
 
 def _request_work(model, k, clouds1, clouds2, t):
@@ -175,7 +174,7 @@ def run(ctx: harness.Run) -> harness.Result:
     reading = {"latencies_s": lat, "pairs": pairs, "window_s": window_s}
     window = None
     if ctx.trace:
-        counters = _counters()
+        counters = _counters(model)
         before = {n: f.launches for n, f in counters.items()}
         work, flops = {}, 0.0
         with trace.profiled(ctx.device) as held:

@@ -139,10 +139,10 @@ def _run(ctx, t, conf, bs, scenes, basepath, work_dir):
     reading = {"window_s": window_s, "steps": steps, "wait_s": wait}
     window = None
     if ctx.trace:
-        from alignnet3d_tpu_torch.ops.edge_train_kernels import (
-            fused_edge_stage_train)
-
-        before = fused_edge_stage_train.launches
+        calls = alignnet.kernel_calls(conf["model"], bs, train=True)
+        counters = harness.backbone(conf["model"]["backbone"]).counters(
+            train=True)
+        before = {k: counters[k].launches for k in calls}
         traced = 0
         with trace.profiled(ctx.device) as held:
             t_end = time.perf_counter() + PROFILE_S
@@ -154,13 +154,11 @@ def _run(ctx, t, conf, bs, scenes, basepath, work_dir):
                         trainer.train_step(batch)["losses/loss"])
                 traced += 1
         window = held.window
-        calls = alignnet.kernel_calls(conf["model"], bs, train=True)
         reading.update(
             trace=window, flops=traced * alignnet.flops(conf["model"], bs,
                                                         train=True),
             work={k: v * traced for k, v in calls.items()},
-            launches={"fused_edge_stage_train":
-                      fused_edge_stage_train.launches - before})
+            launches={k: counters[k].launches - before[k] for k in calls})
 
     stop.append(True)
     try:  # the thread ends at its next batch

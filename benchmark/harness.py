@@ -8,15 +8,24 @@
 - ``benchmark/limits/<cell>.json``: the limits of the cell's comparison
   with the plain reference;
 - ``benchmark/layer_metrics/<metric>.py``: a per-layer metric's reader,
-  ``read(reading)`` returning a number or None (nothing to read).
+  ``read(reading)`` returning a number or None (nothing to read);
+- ``benchmark/backbones/<backbone>.py``: what the benchmark knows of the
+  encoder backbone a configuration's ``model.backbone`` names: ``MODULE``
+  (its module name in the port's state dict), ``IN_FEATURES``,
+  ``layout(prefix, widths)`` (its leaves for the seeded weights),
+  ``flops(n, widths)``, ``kernel_calls(clouds, n, stacks, train)`` and
+  ``counters(train)`` (the port's hand-written kernels it launches);
+- ``benchmark/reference/backbones/<backbone>.py``: its plain reference,
+  ``forward(x, sd, prefix, n_layers, train)``.
 
-Adding a cell, a configuration, a mix or a metric adds files and entries;
-no file here names one.
+Adding a cell, a configuration, a backbone, a mix or a metric adds files
+and entries; no file here names one.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import importlib
 import importlib.util
 import json
@@ -86,14 +95,36 @@ def driver(cell: Cell):
         f"benchmark.drivers.{cell.traffic['driver']}")
 
 
-def reader(metric: str, bench_dir: Path = BENCH_DIR):
-    """The ``read`` function of ``layer_metrics/<metric>.py``."""
-    path = bench_dir / "layer_metrics" / f"{metric}.py"
+def _load(path: Path, name: str):
+    """The module of the file at ``path`` (a KeyError naming it where it is
+    missing), loaded by path, since a name may hold dots or dashes."""
+    if not path.is_file():
+        raise KeyError(f"no file {path}")
     spec = importlib.util.spec_from_file_location(
-        f"benchmark.layer_metrics.{metric.replace('.', '_')}", path)
+        f"{name}.{path.stem.replace('.', '_').replace('-', '_')}", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def reader(metric: str, bench_dir: Path = BENCH_DIR):
+    """The ``read`` function of ``layer_metrics/<metric>.py``."""
+    return _load(bench_dir / "layer_metrics" / f"{metric}.py",
+                 "benchmark.layer_metrics").read
+
+
+@functools.cache
+def backbone(name: str, bench_dir: Path = BENCH_DIR):
+    """The module ``backbones/<name>.py`` (loaded once)."""
+    return _load(bench_dir / "backbones" / f"{name}.py",
+                 "benchmark.backbones")
+
+
+@functools.cache
+def reference_backbone(name: str, bench_dir: Path = BENCH_DIR):
+    """The module ``reference/backbones/<name>.py`` (loaded once)."""
+    return _load(bench_dir / "reference" / "backbones" / f"{name}.py",
+                 "benchmark.reference.backbones")
 
 
 def process_start_time() -> float:

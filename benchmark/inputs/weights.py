@@ -6,8 +6,9 @@ scale and running variance drawn in [0.5, 2) and its bias and running mean
 in [-0.2, 0.2), so that folding the statistics changes every layer. All
 values come from one ``torch.rand`` call of a generator on the device,
 sliced in ``layout`` order. The key names are the port's module tree
-(``siamese.transformer1.PointNetBackbone_0.conv1.weight`` ...); the plain
-reference reads the same dictionary.
+(``siamese.transformer1.<MODULE>.conv1.weight`` ..., where
+``benchmark/backbones/<backbone>.py`` gives ``MODULE`` and the backbone's
+leaves); the plain reference reads the same dictionary.
 """
 
 from __future__ import annotations
@@ -16,10 +17,13 @@ import math
 
 import torch
 
-BACKBONES = {"pointnet": "PointNetBackbone_0", "dgcnn": "DGCNNBackbone_0"}
+from benchmark import harness
 
 
-def _chain(prefix, widths, dense, with_bn_last=True):
+def chain(prefix, widths, dense, with_bn_last=True):
+    """[(key, shape, kind)] of a dense chain ``widths[0] -> ... ->
+    widths[-1]``, its layers ``<dense>1`` ..., each followed by a batch
+    norm ``bn<i>`` (the last one only ``with_bn_last``)."""
     out = []
     n = len(widths) - 1
     for i in range(n):
@@ -33,13 +37,13 @@ def _chain(prefix, widths, dense, with_bn_last=True):
     return out
 
 
-def layout(model: dict):
+def layout(model: dict, bench_dir=harness.BENCH_DIR):
     """[(key, shape, kind)] of the AlignNet of a config's ``model`` section:
     kind is weight, bias or bn_{scale,bias,mean,var}."""
     opts = model["options"]
     bins = model["angles"]["num_bins"]
-    bb = BACKBONES[model["backbone"]]
-    cin = 6 if model["backbone"] == "dgcnn" else 3
+    backbone = harness.backbone(model["backbone"], bench_dir)
+    bb = backbone.MODULE
     s1, (s1_mlp, _) = opts["s1transformer"]
     s2, (s2_mlp, _) = opts["s2transformer"]
     emb = opts["embedding"]
@@ -47,18 +51,19 @@ def layout(model: dict):
     out = []
     for name, sizes, mlp, head in (("transformer1", s1, s1_mlp, 3),
                                    ("transformer2", s2, s2_mlp, 3 + 2 * bins)):
-        out += _chain(f"siamese.{name}.{bb}", (cin, *sizes), "conv")
-        out += _chain(f"siamese.{name}.MLPHead_0", (sizes[-1], *mlp, head),
-                      "fc", with_bn_last=False)
-    out += _chain(f"siamese.{bb}", (cin, *emb), "conv")
-    out += _chain("remaining", (2 * emb[-1], *rem_mlp, 3 + 2 * bins), "fc",
-                  with_bn_last=False)
+        out += backbone.layout(f"siamese.{name}.{bb}", sizes)
+        out += chain(f"siamese.{name}.MLPHead_0", (sizes[-1], *mlp, head),
+                     "fc", with_bn_last=False)
+    out += backbone.layout(f"siamese.{bb}", emb)
+    out += chain("remaining", (2 * emb[-1], *rem_mlp, 3 + 2 * bins), "fc",
+                 with_bn_last=False)
     return out
 
 
-def seeded(model: dict, seed: int, device) -> dict:
+def seeded(model: dict, seed: int, device,
+           bench_dir=harness.BENCH_DIR) -> dict:
     """{key: float32 tensor on ``device``} by the frozen rule."""
-    keys = layout(model)
+    keys = layout(model, bench_dir)
     total = sum(math.prod(shape) for _, shape, kind in keys if kind != "bias")
     gen = torch.Generator(device).manual_seed(int(seed) % (1 << 63))
     u = torch.rand(total, generator=gen, device=device)

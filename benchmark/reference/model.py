@@ -1,11 +1,13 @@
 """Plain PyTorch AlignNet: the benchmark's reference forward and loss.
 
 Written from the model's description (AlignNet-3D, arXiv:1910.04668, and
-its reference code's tp8.py; DGCNN, arXiv:1801.07829) over the state dict
-of ``benchmark/inputs/weights.py``. Nothing here comes from the program: no
-kernel, no fold, no cache. Float32 with TF32 off; batch norms in eval mode
-use the running statistics as they stand (the serving program folds them),
-in train mode the batch's biased statistics (two-pass variance).
+its reference code's tp8.py) over the state dict of
+``benchmark/inputs/weights.py``; each encoder backbone's forward is its own
+file, ``benchmark/reference/backbones/<backbone>.py``, over the helpers
+here. Nothing here comes from the program: no kernel, no fold, no
+cache. Float32 with TF32 off; batch norms in eval mode use the running
+statistics as they stand (the serving program folds them), in train mode
+the batch's biased statistics (two-pass variance).
 
 ``precision("tf32")`` is the control: every dense product and every
 distance product then rounds its operands to TF32 (10-bit mantissa,
@@ -15,13 +17,11 @@ the dense products alone and keeps the distances (the kNN graph, nearest
 neighbours) in float32: a program that moves its layers' products, and not
 its graph, to TF32.
 
-Differences from a straight transcription, each without effect on the
-maths: edge features are formed as ``[x_i, x_j - x_i]`` and multiplied
-(the program splits the first layer into per-point products). Squared
-distances (the kNN graph here, nearest neighbours in ``serve``) are
-expanded as |a|^2 + |b|^2 - 2 a.b in a fixed order, so that rounding picks
-between near-equal neighbours as a float32 implementation of that formula
-does; neighbour ties go to the lower index.
+A difference from a straight transcription, without effect on the
+maths: squared distances (a backbone's kNN graph, nearest neighbours in
+``serve``) are expanded as |a|^2 + |b|^2 - 2 a.b in a fixed order, so that
+rounding picks between near-equal neighbours as a float32 implementation
+of that formula does; neighbour ties go to the lower index.
 """
 
 from __future__ import annotations
@@ -33,8 +33,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from benchmark import harness
+
 BN_EPS = 1e-3
-K_NEIGHBOURS = 20
 _STATE = {"precision": "float32"}
 
 
@@ -122,39 +123,6 @@ def sq_norm(x: torch.Tensor) -> torch.Tensor:
             + x[..., 2] * x[..., 2])
 
 
-def knn_graph(x: torch.Tensor, k: int) -> torch.Tensor:
-    """(B, N, k) indices of each point's k nearest points of its cloud
-    (itself among them), ties to the lower index."""
-    return torch.sort(sq_distances(x, x), dim=-1, stable=True).indices[..., :k]
-
-
-def pointnet(x, sd, prefix, n_layers, train):
-    for i in range(1, n_layers + 1):
-        x = torch.relu(batch_norm(dense(x, sd, f"{prefix}.conv{i}"), sd,
-                                  f"{prefix}.bn{i}", train))
-    return x.amax(1)
-
-
-def dgcnn(x, sd, prefix, n_layers, train):
-    idx = knn_graph(x.detach(), min(K_NEIGHBOURS, x.shape[1]))
-    nbr = _gather_rows(x, idx)
-    centre = x[:, :, None, :].expand_as(nbr)
-    h = torch.cat([centre, nbr - centre], dim=-1)
-    for i in range(1, n_layers):
-        h = torch.relu(batch_norm(dense(h, sd, f"{prefix}.conv{i}"), sd,
-                                  f"{prefix}.bn{i}", train))
-    h = h.amax(2)
-    h = torch.relu(batch_norm(dense(h, sd, f"{prefix}.conv{n_layers}"), sd,
-                              f"{prefix}.bn{n_layers}", train))
-    return h.amax(1)
-
-
-def _gather_rows(x, idx):
-    b, n, c = x.shape
-    flat = (idx + (torch.arange(b, device=x.device) * n)[:, None, None])
-    return x.reshape(b * n, c)[flat.reshape(-1)].reshape(*idx.shape, c)
-
-
 def head(x, sd, prefix, n_layers, train, dropout):
     for i in range(1, n_layers):
         x = torch.relu(batch_norm(dense(x, sd, f"{prefix}.fc{i}"), sd,
@@ -180,24 +148,27 @@ def rotate_z(p, angle):
 
 
 class Model:
-    """The AlignNet of a config's ``model`` section over a state dict."""
+    """The AlignNet of a config's ``model`` section over a state dict; its
+    backbone is ``reference/backbones/<backbone>.py`` under the state-dict
+    name of ``backbones/<backbone>.py``."""
 
-    def __init__(self, model_cfg: dict, sd: dict):
+    def __init__(self, model_cfg: dict, sd: dict,
+                 bench_dir=harness.BENCH_DIR):
         self.cfg = model_cfg
         self.sd = sd
         opts = model_cfg["options"]
         self.bins = model_cfg["angles"]["num_bins"]
         self.kind = model_cfg["backbone"]
-        self.bb = {"pointnet": "PointNetBackbone_0",
-                   "dgcnn": "DGCNNBackbone_0"}[self.kind]
+        self.bb = harness.backbone(self.kind, bench_dir).MODULE
+        self._backbone = harness.reference_backbone(self.kind,
+                                                    bench_dir).forward
         self.sizes = {"transformer1": opts["s1transformer"],
                       "transformer2": opts["s2transformer"]}
         self.emb = opts["embedding"]
         self.rem = opts["remaining_transform_prediction"]
 
     def backbone(self, x, prefix, n, train):
-        fn = dgcnn if self.kind == "dgcnn" else pointnet
-        return fn(x, self.sd, prefix, n, train)
+        return self._backbone(x, self.sd, prefix, n, train)
 
     def transformer(self, x, name, train, dropout):
         sizes, (mlp, keep) = self.sizes[name]

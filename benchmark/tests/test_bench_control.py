@@ -1,7 +1,7 @@
 """The comparison's control at a size a test run holds: the reference with
 TF32 products in the program's place fails one of the cell's numbers, and
-so do TF32 in the DGCNN's dense products alone and the training step on
-half of each batch."""
+so do TF32 in the DGCNN's dense products alone and, in each training
+cell, the training step on half of each batch."""
 
 from __future__ import annotations
 
@@ -27,7 +27,8 @@ def test_dense_tf32_with_a_float32_graph_fails_dgcnn_offline():
     assert _fails(cell, control.serve_readings(cpu_run(cell), "tf32_dense"))
 
 
+@pytest.mark.parametrize("name", ["dgcnn-train", "pointnet-train"])
 @pytest.mark.parametrize("fault", ["tf32", "half_batch"])
-def test_control_and_half_batch_fail_the_training_cell(fault):
-    cell = tiny("dgcnn-train")
+def test_control_and_half_batch_fail_the_training_cell(fault, name):
+    cell = tiny(name)
     assert _fails(cell, control.train_readings(cpu_run(cell), fault))

@@ -15,7 +15,8 @@ from benchmark.tests.conftest import cpu_run, tiny
 
 
 @pytest.mark.parametrize("name", ["pointnet-track", "pointnet-offline",
-                                  "dgcnn-offline", "dgcnn-train"])
+                                  "dgcnn-offline", "dgcnn-train",
+                                  "pointnet-train"])
 def test_driver_runs_tiny_on_the_cpu(name):
     cell = tiny(name)
     run = cpu_run(cell, trace=True)

@@ -12,6 +12,7 @@ from benchmark import harness
 from benchmark.tests.conftest import cpu_run, tiny
 
 SERVE = ["pointnet-track", "pointnet-offline", "dgcnn-offline"]
+TRAIN = ["dgcnn-train", "pointnet-train"]
 
 
 def _run(name):
@@ -64,7 +65,8 @@ def test_half_of_the_batch_left_out(name, monkeypatch):
     assert not _run(name)
 
 
-def test_a_step_that_returns_its_state_unchanged(monkeypatch):
+@pytest.mark.parametrize("name", TRAIN)
+def test_a_step_that_returns_its_state_unchanged(name, monkeypatch):
     step = torch.optim.Adam.step
 
     def unchanged(self, *args, **kwargs):
@@ -78,10 +80,11 @@ def test_a_step_that_returns_its_state_unchanged(monkeypatch):
         return out
 
     monkeypatch.setattr(torch.optim.Adam, "step", unchanged)
-    assert not _run("dgcnn-train")
+    assert not _run(name)
 
 
-def test_half_of_the_training_batch_left_out(monkeypatch):
+@pytest.mark.parametrize("name", TRAIN)
+def test_half_of_the_training_batch_left_out(name, monkeypatch):
     from alignnet3d_tpu_torch.training.trainer import Trainer
 
     to_device = Trainer._to_device
@@ -90,4 +93,4 @@ def test_half_of_the_training_batch_left_out(monkeypatch):
         return to_device(self, [np.asarray(a)[:len(a) // 2] for a in batch])
 
     monkeypatch.setattr(Trainer, "_to_device", halved)
-    assert not _run("dgcnn-train")
+    assert not _run(name)

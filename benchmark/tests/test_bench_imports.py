@@ -1,6 +1,8 @@
 """Nothing the benchmark runs loads JAX or the JAX package (top-level
 module names compared whole: the port's name begins with the JAX
-package's), and the reference loads nothing of the port."""
+package's), not even a backbone's launch counters, and the reference,
+each plain backbone under ``reference/backbones/`` with it, loads nothing
+of the port."""
 
 from __future__ import annotations
 
@@ -31,6 +33,11 @@ for path in sorted(root.rglob("*.py")):
     if rel.parts[1] == "layer_metrics" and not path.stem.startswith("_") \\
             and path.stem != "__init__":
         harness.reader(path.stem)
+    elif rel.parts[1] == "backbones":
+        for train in (False, True):
+            harness.backbone(path.stem).counters(train)
+    elif rel.parts[1:3] == ("reference", "backbones"):
+        harness.reference_backbone(path.stem)
     else:
         importlib.import_module(".".join(rel.with_suffix("").parts))
 import alignnet3d_tpu_torch.api, alignnet3d_tpu_torch.training.trainer
@@ -41,6 +48,11 @@ print(sorted(top & BLOCKED | ({"alignnet3d_tpu_torch"} - top)))
 REFERENCE = BLOCK + """
 import benchmark.reference.model, benchmark.reference.serve
 import benchmark.reference.train
+from benchmark import harness
+for path in sorted((harness.BENCH_DIR / "reference" / "backbones").glob(
+        "*.py")):  # each plain backbone, and the name its Model reads
+    harness.reference_backbone(path.stem).forward
+    harness.backbone(path.stem).MODULE
 print(sorted({m.split(".", 1)[0] for m in sys.modules}
              & {"alignnet3d_tpu_torch", "jax", "alignnet3d_tpu"}))
 """

@@ -160,11 +160,13 @@ def test_icp_from_perturbed_truth_is_the_ports():
     assert (err < np.linalg.norm(init[:, :3, 3] - truth, axis=1)).all()
 
 
-def test_one_training_step_is_the_trainers(tmp_path):
+@pytest.mark.parametrize("config", ["dgcnn-synthcars40k",
+                                    "pointnet-synthcars"])
+def test_one_training_step_is_the_trainers(config, tmp_path):
     from alignnet3d_tpu_torch.config import config_from_dict
     from alignnet3d_tpu_torch.training.trainer import Trainer
 
-    conf = copy.deepcopy(_config("dgcnn-synthcars40k"))
+    conf = copy.deepcopy(_config(config))
     conf.update(train_pairs=8, val_pairs=2)
     conf["training"]["batch_size"] = 4
     conf["model"]["num_points"] = 32
